@@ -1,0 +1,99 @@
+"""Build the port's CUDA kernels from go_mp3_tpu_torch/csrc at first use.
+
+nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds). The library lands in build/go_mp3_tpu_torch/<hash>/ at the repo
+root, keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused. Nothing here runs at import.
+
+No --use_fast_math: the kernels need the accurate exp2f/log2f and
+denormals kept, for the 2e-5 requantize bound and tiny-exponent lines.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "go_mp3_tpu_torch"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+_LIB_NAME = "libgomp3_kernels.so"
+
+_lib = None
+build_seconds = 0.0  # wall time of the build this process ran (0 if cached)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16] / _LIB_NAME
+
+
+def _build(out: Path) -> None:
+    global build_seconds
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    (out.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def load():
+    """The kernel library (built on first call), with argtypes set."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    if not path.exists():
+        _build(path)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        ("gomp3_requant_stereo_init", [i] + [p] * 8),
+        ("gomp3_requant_stereo", [i, i, p, p, p, p, p, i, i, p]),
+        ("gomp3_hybrid_init", [i] + [p] * 5),
+        ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, p]),
+        ("gomp3_synth_init", [i, p, p]),
+        ("gomp3_synth", [i, p, p, p, p, p, p, p, i, i, p]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib

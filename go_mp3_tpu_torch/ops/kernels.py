@@ -1,0 +1,190 @@
+"""Wrappers of the hand-written CUDA kernels K1-K3 (csrc/*.cu).
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+ - on CPU tensors, runs the kernel's plain PyTorch version (ops/granule.py);
+ - on CUDA tensors, launches the kernel on the current stream, or raises.
+   There is no fallback from a CUDA tensor to the plain version.
+It allocates outputs and scratch with torch.empty and counts its launches
+in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
+
+  requant_stereo  K1  csrc/requant_stereo.cu  unpack, requantize, stereo
+  hybrid          K2  csrc/hybrid.cu          antialias .. freq inversion
+  synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
+
+decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from go_mp3_tpu.consts import HEAD_WIDTH, SIDE8_WIDTH, SIDE_WIDTH, SP8_TAIL_WIDTH
+
+from . import _build
+from . import granule as G
+from . import tables as T
+
+_ready_devices: set[int] = set()
+
+
+def _library(device: torch.device):
+    """The kernel library with its tables uploaded to `device`."""
+    lib = _build.load()
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _ready_devices:
+        def ptr(a):
+            return a.ctypes.data
+
+        keep = [  # host copies alive until the synchronous uploads return
+            np.ascontiguousarray(T.PRETAB, np.float32),
+            T.IS_RATIO_L, T.IS_RATIO_R,
+            np.ascontiguousarray(T.LONG_BAND_START[:, :22], np.int32),
+            np.ascontiguousarray(T.SHORT_BAND_START3[:, :13], np.int32),
+            T.LONG_SFB_OF_LINE.astype(np.uint8),
+            (T.REQ_SHORT_SFB_OF_LINE * 3 + T.REQ_SHORT_WIN_OF_LINE).astype(np.uint8),
+            (T.SHORT_SFB_OF_LINE * 3 + T.SHORT_WIN_OF_LINE).astype(np.uint8),
+        ]
+        _check_rc("requant_stereo_init",
+                  lib.gomp3_requant_stereo_init(idx, *map(ptr, keep)))
+        hyb = [T.CS, T.CA, T.COS_N36, T.SHORT_M3, T.IMDCT_WIN]
+        _check_rc("hybrid_init", lib.gomp3_hybrid_init(idx, *map(ptr, hyb)))
+        syn = [T.SYNTH_N_WIN, T.SYNTH_DTBL]
+        _check_rc("synth_init", lib.gomp3_synth_init(idx, *map(ptr, syn)))
+        _ready_devices.add(idx)
+    return lib, idx
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _route(device: torch.device) -> bool:
+    """True: launch the kernel; False: run the plain version (CPU only)."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")
+
+
+def requant_stereo(packed: tuple, stereo: bool = True):
+    """K1. packed = (spectra i16 [S,T,1152], side i16 [S,T,144]) or
+    (tail8 i8 [S,T,1024], head16 i16 [S,T,128], side8 u8 [S,T,168])
+    -> (x f32 [S, T, 2, 576], ginfo int32 [S, T]). stereo=False stops
+    after requantize, to check the two parts of K1 apart."""
+    first = packed[0]
+    dev = first.device
+    s_dim, t_dim = first.shape[:2]
+    if len(packed) == 2:
+        specs = [("spectra", torch.int16, 1152), ("side", torch.int16, SIDE_WIDTH)]
+    elif len(packed) == 3:
+        specs = [("tail8", torch.int8, SP8_TAIL_WIDTH),
+                 ("head16", torch.int16, HEAD_WIDTH),
+                 ("side8", torch.uint8, SIDE8_WIDTH)]
+    else:
+        raise ValueError(f"packed chunk has {len(packed)} arrays, expected 2 or 3")
+    for t, (name, dtype, width) in zip(packed, specs):
+        _expect(t, name, dtype, (s_dim, t_dim, width), dev)
+    if not _route(dev):
+        return G.requant_stereo_ref(G.batch_from_any(packed), stereo)
+    lib, idx = _library(dev)
+    out = torch.empty((s_dim, t_dim, 2, 576), dtype=torch.float32, device=dev)
+    ginfo = torch.empty((s_dim, t_dim), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in packed] + [None] * (3 - len(packed))
+    _check_rc("requant_stereo", lib.gomp3_requant_stereo(
+        idx, int(len(packed) == 3), *ptrs, out.data_ptr(), ginfo.data_ptr(),
+        s_dim * t_dim, int(stereo), torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    requant_stereo.launches += 1
+    return out, ginfo
+
+
+def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
+           valid: torch.Tensor):
+    """K2. x f32 [S,T,2,576], ginfo int32 [S,T], store f32 [S,2,32,18],
+    valid int32 [S] (0 <= valid <= T) -> (x18 f32 [S,T,2,32,18], store
+    after valid granules)."""
+    dev = x.device
+    s_dim, t_dim = x.shape[:2]
+    _expect(x, "x", torch.float32, (s_dim, t_dim, 2, 576), dev)
+    _expect(ginfo, "ginfo", torch.int32, (s_dim, t_dim), dev)
+    _expect(store, "store", torch.float32, (s_dim, 2, 32, 18), dev)
+    _expect(valid, "valid", torch.int32, (s_dim,), dev)
+    if not _route(dev):
+        return G.hybrid_ref(x, ginfo, store, valid)
+    lib, idx = _library(dev)
+    x18 = torch.empty((s_dim, t_dim, 2, 32, 18), dtype=torch.float32, device=dev)
+    store_out = torch.empty_like(store)
+    _check_rc("hybrid", lib.gomp3_hybrid(
+        idx, x.data_ptr(), ginfo.data_ptr(), store.data_ptr(), valid.data_ptr(),
+        x18.data_ptr(), store_out.data_ptr(), s_dim, t_dim,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    hybrid.launches += 1
+    return x18, store_out
+
+
+def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
+          valid: torch.Tensor):
+    """K3. x18 f32 [S,T,2,32,18], ginfo int32 [S,T], v_fifo f32
+    [S,2,16,64], valid int32 [S] -> (pcm int16 [S, T*576, 2], v_fifo
+    after valid granules)."""
+    dev = x18.device
+    s_dim, t_dim = x18.shape[:2]
+    _expect(x18, "x18", torch.float32, (s_dim, t_dim, 2, 32, 18), dev)
+    _expect(ginfo, "ginfo", torch.int32, (s_dim, t_dim), dev)
+    _expect(v_fifo, "v_fifo", torch.float32, (s_dim, 2, 16, 64), dev)
+    _expect(valid, "valid", torch.int32, (s_dim,), dev)
+    if not _route(dev):
+        return G.synth_ref(x18, ginfo, v_fifo, valid)
+    lib, idx = _library(dev)
+    vs = torch.empty((s_dim, 2, t_dim * 18, 64), dtype=torch.float32, device=dev)
+    pcm = torch.empty((s_dim, t_dim * 576, 2), dtype=torch.int16, device=dev)
+    fifo_out = torch.empty_like(v_fifo)
+    _check_rc("synth", lib.gomp3_synth(
+        idx, x18.data_ptr(), ginfo.data_ptr(), v_fifo.data_ptr(), valid.data_ptr(),
+        vs.data_ptr(), pcm.data_ptr(), fifo_out.data_ptr(), s_dim, t_dim,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    synth.launches += 1
+    return pcm, fifo_out
+
+
+KERNELS = (requant_stereo, hybrid, synth)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def decode_chunk(packed: tuple, state: G.DecodeState, valid: torch.Tensor):
+    """One [S, T] chunk of packed granules (either interface of
+    requant_stereo) plus the state -> (pcm int16 [S, T*576, 2], state
+    after each stream's valid granules). K1 -> K2 -> K3."""
+    x, ginfo = requant_stereo(packed)
+    x18, store = hybrid(x, ginfo, state.store, valid)
+    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid)
+    return pcm, G.DecodeState(store=store, v_fifo=fifo)

@@ -1,0 +1,44 @@
+"""What the port is held against, reached without jax.
+
+ - the exact backend of go_mp3_tpu: the C++ parser plus the C++ DSP that
+   replicates the reference decoder's float32 operation order;
+ - the ISO/IEC 11172-4 compliance measure between two s16le PCM streams
+   (thresholds as in tools/compliance.py and conformance/REPORT.json);
+ - the C++ stream index (frame starts, bytes per frame, sample rate), which
+   builds rotated multi-lane corpora the way bench.py does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from go_mp3_tpu import Decoder as _Decoder
+
+# native_available(): the C++ parser and exact DSP (libmp3parse.so, built
+# with g++ at first use) are loaded; index_stream(data): (frame start
+# offsets, bytes per frame, sample rate) of a stream
+from go_mp3_tpu.native.lib import available as native_available  # noqa: F401
+from go_mp3_tpu.native.lib import index_stream  # noqa: F401
+
+FULL_RMS = 0.289  # LSB
+FULL_MAXDIFF = 2  # LSB
+
+
+def iso_metrics(a: bytes, b: bytes) -> tuple[float, int]:
+    """(RMS, max |difference|) in 16-bit LSBs over sample-aligned PCM of
+    equal length."""
+    if len(a) != len(b):
+        raise ValueError(f"PCM lengths differ: {len(a)} vs {len(b)}")
+    if not a:
+        return 0.0, 0
+    d = np.frombuffer(a, "<i2").astype(np.int32) - np.frombuffer(b, "<i2")
+    return float(np.sqrt(np.mean(d.astype(np.float64) ** 2))), int(np.abs(d).max())
+
+
+def exact_decoder(data: bytes) -> _Decoder:
+    """A go_mp3_tpu Decoder on the exact backend (no accelerator)."""
+    return _Decoder(data, backend="exact")
+
+
+def decode_exact(data: bytes) -> bytes:
+    return exact_decoder(data).read_all()
