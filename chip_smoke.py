@@ -5,24 +5,35 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from go_mp3_tpu_torch/csrc, then runs six phases
-and exits non-zero at the first that fails:
+It builds the CUDA kernels from go_mp3_tpu_torch/csrc (one nvcc per
+source, side by side), then runs these phases and exits non-zero at the
+first that fails:
 
  1. device: the card (nvidia-smi name and power limit), the kernel build,
     the C++ parser build;
  2. kernels against plain: K1, K2 and K3 each against its plain PyTorch
     version on the same seeded synthetic batch (S=64 streams x T=240
     granules, every block class, stereo mode and band variant, ragged valid
-    counts including 0), within stated bounds, and timed against it;
+    counts including 0), within stated bounds, and timed against it; K4
+    (the fused-wire unpack) equal to its plain version and to the arrays
+    the wire was built from, stereo and mono, full and capped width, and
+    at an odd T and odd width;
  3. chunk invariance: the same granules decoded as one chunk and split at
-    other boundaries, state carried: bit-identical PCM and state;
+    other boundaries, state carried: bit-identical PCM and state; and a
+    k = 4 segment of both lane groups replayed twice through the captured
+    SegmentGraph against run_segment_eager: bit-identical PCM and state;
  4. Decoder: a 94 s stream (conformance/synthetic_escape.mp3 x300) read
     whole and after a seek, against the exact C++ backend, ISO full
     compliance (RMS < 0.289 LSB, max diff <= 2), and a checkpoint/resume;
- 5. corpus: decode_corpus_fast over 64 rotated lanes (48 x escape x128,
-    16 x lowrate x110: 193,216 granules, ~52 min of audio), every lane ISO
-    fully compliant against the exact backend, run cold and warm, with the
-    phase split and the launch count of every kernel;
+ 5. corpus: decode_corpus_fast over 64 rotated lanes (48 stereo lanes of
+    escape x128, 16 mono lanes of lowrate x110: 193,216 granules, ~52 min
+    of audio): the defaults (fused wire, mono split; cold and warm),
+    fused=False, n_threads=8 alone, bench.py's production settings
+    (chunk_t=240, tail_buckets=(464, 512), n_threads=8, drain=4:
+    SegmentGraph replays; cold and warm) and fetch=False. All give the
+    same bytes, every lane ISO fully compliant against the exact backend;
+    each run prints its phase split, widths, wire bytes, graph replays and
+    the launches of every kernel;
  6. the last line: {"ok": true, "device": {...}}.
 
 The line before the last is a JSON object with one entry per kernel. The
@@ -53,7 +64,12 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
                "go_mp3_tpu/ops/granule.py:361"),
     "synth": ("go_mp3_tpu_torch/csrc/synth.cu",
               "go_mp3_tpu/ops/granule.py:423"),
+    "unpack_fused": ("go_mp3_tpu_torch/csrc/unpack_fused.cu",
+                     "go_mp3_tpu/ops/granule.py:661"),
 }
+GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
+             "go_mp3_tpu/ops/granule.py:726")
+N_STEREO, N_MONO = 48, 16  # lane groups of the smoke corpus
 
 
 def say(msg: str) -> None:
@@ -274,6 +290,149 @@ def phase_chunk_invariance(dev, s_dim: int, t_dim: int) -> None:
         f"and state ({int(valid.sum())} granules)")
 
 
+def wire_chunk(seed: int, s_dim: int, t_dim: int, lines: int, mono: bool):
+    """Seeded synthetic granules as fused rows (numpy u8 [S, n]) and the
+    int8-interface arrays they carry: tail lines past `lines` zero, and
+    channel 1 zero on mono rows (the wire's contract)."""
+    import torch_synthetic as syn
+    from go_mp3_tpu_torch.ops import wire as W
+
+    rng = np.random.default_rng(seed)
+    valid = rng.integers(1, t_dim + 1, s_dim).astype(np.int32)
+    sp, sd = syn.random_chunk(seed, s_dim, t_dim, valid)
+    tail, head, side = syn.to_packed8(sp, sd)
+    tail = tail.reshape(s_dim, t_dim, 2, 512).copy()
+    tail[..., lines:] = 0
+    head = head.reshape(s_dim, t_dim, 2, 64).copy()
+    if mono:
+        tail[:, :, 1] = 0
+        head[:, :, 1] = 0
+    arrays = (tail.reshape(s_dim, t_dim, 1024), head.reshape(s_dim, t_dim, 128), side)
+    build = W.build_fused_chunk_mono if mono else W.build_fused_chunk
+    return build(*arrays, lines), arrays, valid
+
+
+def phase_unpack(dev, s_dim: int, t_dim: int) -> dict:
+    """K4 against its plain version: exact equality, and both equal to the
+    arrays the wire was built from."""
+    import torch
+
+    from go_mp3_tpu_torch.ops import granule as G
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    cases = [  # (label, lanes, T, width, mono); each case its own data
+        ("stereo", s_dim, t_dim, 512, False),
+        ("stereo group", N_STEREO, t_dim, 512, False),
+        ("stereo group capped", N_STEREO, t_dim, 464, False),
+        ("mono group", N_MONO, t_dim, 512, True),
+        ("mono group capped", N_MONO, t_dim, 301, True),
+        ("stereo odd", 5, 37, 301, False),
+        ("mono odd", 5, 37, 301, True),
+    ]
+    for i, (label, s, t, lines, mono) in enumerate(cases):
+        buf_np, arrays, _ = wire_chunk(SEED + 10 + i, s, t, lines, mono)
+        buf = torch.from_numpy(buf_np).to(dev)
+        got = K.unpack_fused(buf, t, lines, mono)
+        ref = (G.unpack_fused_mono_ref if mono else G.unpack_fused_ref)(buf, t, lines)
+        for name, a, b, want in zip(("tail8", "head16", "side8"), got, ref, arrays):
+            check(torch.equal(a, b), f"K4 {label}: {name} differs from plain")
+            check(np.array_equal(a.cpu().numpy(), want),
+                  f"K4 {label}: {name} differs from the wire's source arrays")
+        say(f"phase 2 K4 unpack_fused [{label}]: S={s} T={t} L={lines} "
+            f"({buf_np.shape[1]} B/row): equal to plain and to the source")
+    buf = torch.from_numpy(wire_chunk(SEED + 10, s_dim, t_dim, 512, False)[0]).to(dev)
+    row = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: K.unpack_fused(buf, t_dim, 512)),
+        "plain_ms": time_ms(lambda: G.unpack_fused_ref(buf, t_dim, 512)),
+    }
+    say(f"phase 2 time unpack_fused: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}, L=512, "
+        f"{buf.numel() / 1e6:.1f} MB in)")
+    return row
+
+
+def phase_graph(dev, t_dim: int, k: int = 4) -> dict:
+    """A k-chunk segment of a stereo and a mono group, twice in a row (the
+    state carried from the first into the second): SegmentGraph replays
+    against run_segment_eager, bit for bit."""
+    import torch
+
+    from go_mp3_tpu_torch.ops.granule import DecodeState, state_from_numpy
+    from go_mp3_tpu_torch.parallel.segment import (
+        SegmentGraph,
+        run_segment_eager,
+        static_slots,
+    )
+
+    groups = ((N_STEREO, 464, False), (N_MONO, 301, True))
+    widths = tuple(g[1] for g in groups)
+    monos = tuple(g[2] for g in groups)
+    rng = np.random.default_rng(SEED + 20)
+
+    def segment(seed):
+        bufs, valids = [], []
+        for gi, (s, lines, mono) in enumerate(groups):
+            rows, vs = [], []
+            for c in range(k):
+                buf, _, v = wire_chunk(seed + 10 * gi + c, s, t_dim, lines, mono)
+                v[rng.integers(s)] = 0
+                rows.append(buf)
+                vs.append(v)
+            bufs.append(torch.from_numpy(np.stack(rows)).to(dev))
+            valids.append(torch.from_numpy(np.stack(vs)).to(dev))
+        return bufs, valids
+
+    segs = [segment(SEED + 100), segment(SEED + 200)]
+    st0 = tuple(state_from_numpy(
+        (rng.standard_normal((s, 2, 32, 18)) * 0.05).astype(np.float32),
+        (rng.standard_normal((s, 2, 16, 64)) * 0.05).astype(np.float32), dev)
+        for s, _, _ in groups)
+
+    eager, st = [], st0
+    for bufs, valids in segs:
+        pcm, st = run_segment_eager(bufs, valids, st, t_dim, widths, monos)
+        eager.append((pcm, st))
+
+    slots = static_slots(k, t_dim, [g[0] for g in groups], dev)
+    for dst, src in zip(slots[1], st0):
+        dst.store.copy_(src.store)
+        dst.v_fifo.copy_(src.v_fifo)
+    graph = SegmentGraph(t_dim, widths, monos, *slots)
+    worst = 0
+    for i, ((bufs, valids), (pcm_e, st_e)) in enumerate(zip(segs, eager)):
+        for dst, src in zip(graph.bufs, bufs):
+            dst.copy_(src)
+        for dst, src in zip(slots[0], valids):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g in range(len(groups)):
+            d = int((slots[2][g].int() - pcm_e[g].int()).abs().max())
+            worst = max(worst, d)
+            check(d == 0, f"SegmentGraph replay {i}: PCM of group {g} differs ({d} LSB)")
+            check(torch.equal(slots[1][g].store, st_e[g].store)
+                  and torch.equal(slots[1][g].v_fifo, st_e[g].v_fifo),
+                  f"SegmentGraph replay {i}: state of group {g} differs")
+    say(f"phase 3 SegmentGraph: k={k}, groups {groups} (lanes, width, mono), "
+        f"two replays with the state carried: PCM and state bit-identical to "
+        f"run_segment_eager; {sum(graph.launches.values())} kernel calls "
+        f"captured per replay {graph.launches}; capture (warm-up included) "
+        f"{graph.capture_seconds:.3f} s")
+    bufs, valids = segs[0]
+    st_copy = [DecodeState(s.store.clone(), s.v_fifo.clone()) for s in slots[1]]
+    row = {
+        "max_abs_err": float(worst),
+        "ms": time_ms(graph.replay),
+        "plain_ms": time_ms(lambda: run_segment_eager(
+            bufs, valids, st_copy, t_dim, widths, monos)),
+    }
+    say(f"phase 3 time segment_graph: one replay {row['ms']:.4f} ms, the "
+        f"eager segment {row['plain_ms']:.4f} ms (k={k}, T={t_dim}, "
+        f"{N_STEREO} + {N_MONO} lanes)")
+    return row
+
+
 def _iso(a: bytes, b: bytes, what: str) -> tuple[float, int]:
     from go_mp3_tpu_torch.reference import FULL_MAXDIFF, FULL_RMS, iso_metrics
 
@@ -318,66 +477,133 @@ def phase_decoder(dev, times: int = 300) -> None:
         f"{smx}; checkpoint/resume round-trips")
 
 
-def corpus_lanes(n_escape: int = 48, n_lowrate: int = 16,
+def corpus_lanes(n_escape: int = N_STEREO, n_lowrate: int = N_MONO,
                  escape_times: int = 128, lowrate_times: int = 110) -> list[bytes]:
     """Rotated lanes, each starting at a different frame (as bench.py
-    builds its corpus)."""
+    builds its corpus). The escape stream mixes mono and stereo frames;
+    its lanes start at the next stereo frame, so that they are the stereo
+    lane group of mono_split (their mono frames ride the stereo wire) and
+    the lowrate lanes the mono group."""
     from go_mp3_tpu_torch.reference import index_stream
 
-    def rotated(data: bytes, n: int, step: int) -> list[bytes]:
+    def rotated(data: bytes, n: int, step: int, stereo_first: bool) -> list[bytes]:
         starts, _, _ = index_stream(data)
         out = []
         for s in range(n):
-            off = int(starts[(1 + step * s) % len(starts)])
+            i = (1 + step * s) % len(starts)
+            if stereo_first:  # header byte 3, bits 7-6: channel mode, 3 = mono
+                while data[int(starts[i]) + 3] >> 6 == 3:
+                    i = (i + 1) % len(starts)
+            off = int(starts[i])
             out.append(data[off:] + data[:off])
         return out
 
     escape = (ROOT / "conformance" / "synthetic_escape.mp3").read_bytes() * escape_times
     lowrate = (ROOT / "conformance" / "synthetic_lowrate.mp3").read_bytes() * lowrate_times
-    return rotated(escape, n_escape, 29) + rotated(lowrate, n_lowrate, 43)
+    return (rotated(escape, n_escape, 29, stereo_first=True)
+            + rotated(lowrate, n_lowrate, 43, stereo_first=False))
 
 
-def phase_corpus(dev, lanes: list[bytes], chunk_t: int = 240) -> dict:
-    """Two runs: the first pays one-time set-up (pinned host buffers, the
-    caching allocator, module loading), the second is the steady state.
-    Both must give the same bytes; the second is checked lane by lane."""
+def _lanes_from_device(pcm, valids) -> list[bytes]:
+    """fetch=False's (pcm [C, S, T*576, 2] on the card, valids [C, S]) ->
+    per-lane PCM bytes, for the check only."""
+    host = pcm.cpu().numpy()
+    return [b"".join(host[c, s, : valids[c, s] * 576].tobytes()
+                     for c in range(len(valids)) if valids[c, s])
+            for s in range(host.shape[1])]
+
+
+# bench.py's production settings (bench.py:150-155), drain=4 on top
+BENCH_SETTINGS = {"chunk_t": 240, "tail_buckets": (464, 512), "n_threads": 8,
+                  "drain": 4}
+CORPUS_RUNS = (  # (label, decode_corpus_fast keywords)
+    ("defaults cold", {}),
+    ("defaults warm", {}),
+    ("fused=False", {"fused": False}),
+    ("n_threads=8", {"n_threads": 8}),
+    ("bench settings cold", BENCH_SETTINGS),
+    ("bench settings warm", BENCH_SETTINGS),
+    ("fetch=False", {"fetch": False}),
+)
+
+
+def phase_corpus(dev, lanes: list[bytes]) -> dict:
+    """The corpus runs of CORPUS_RUNS (a configuration's first run pays
+    one-time set-up such as pinned host buffers, the caching allocator and
+    module loading, so the defaults and the bench settings run twice). Every run gives the same bytes, checked lane by lane against
+    the exact backend. Each run starts with the launch counts at 0 and
+    reads them at its end. -> launches summed over the runs."""
     import torch
 
     from go_mp3_tpu_torch import decode_corpus_fast
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.parallel.segment import SegmentGraph
     from go_mp3_tpu_torch.reference import decode_exact, index_stream
 
-    runs = []
-    for label in ("cold", "warm"):
+    runs, totals = [], {}
+    for label, kw in CORPUS_RUNS:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        SegmentGraph.replays = 0
         t0 = time.perf_counter()
-        res = decode_corpus_fast(lanes, chunk_t=chunk_t, device=dev)
+        res = decode_corpus_fast(lanes, device=dev, **kw)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**20
-        runs.append((label, res, wall, peak))
-    check(runs[0][1].pcm == runs[1][1].pcm, "corpus: two runs gave different PCM")
+        counts = {**K.launch_counts(), "segment_graph": SegmentGraph.replays}
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        if isinstance(res, tuple):  # fetch=False: PCM on the card
+            shape = tuple(res[0].shape)
+            res, pcm = res.stats, _lanes_from_device(*res)
+            label += f" (PCM left on the card as {shape} int16)"
+        else:
+            pcm = res.pcm
+        runs.append((label, kw, res, pcm, wall, peak, counts))
+
+    base = runs[0][3]
+    for run in runs[1:]:
+        check(run[3] == base, f"corpus {run[0]}: PCM differs from the first run")
     rates = [index_stream(d)[2] for d in lanes]
-    res = runs[1][1]
-    audio = sum(len(p) / 4 / sr for p, sr in zip(res.pcm, rates))
+    audio = sum(len(p) / 4 / sr for p, sr in zip(base, rates))
+    granules = runs[0][2].granules
     with ThreadPoolExecutor(max_workers=8) as pool:
         refs = list(pool.map(decode_exact, lanes))
     worst = (0.0, 0)
-    for i, (got, ref) in enumerate(zip(res.pcm, refs)):
+    for i, (got, ref) in enumerate(zip(base, refs)):
         rms, mx = _iso(got, ref, f"corpus lane {i}")
         worst = (max(worst[0], rms), max(worst[1], mx))
-    say(f"phase 5 corpus: {len(lanes)} lanes, {res.granules} granules, "
-        f"{audio:.2f} s of audio; every lane ISO full vs exact (worst RMS "
-        f"{worst[0]:.4f}, max {worst[1]})")
-    for label, r, wall, peak in runs:
-        ph = r.phase_seconds
+    say(f"phase 5 corpus: {len(lanes)} lanes ({N_STEREO} stereo + {N_MONO} "
+        f"mono), {granules} granules, {audio:.2f} s of audio; all "
+        f"{len(runs)} runs byte-identical; every lane ISO full vs exact "
+        f"(worst RMS {worst[0]:.4f}, max {worst[1]})")
+
+    kernel_names = list(KERNEL_ROWS)
+    for label, kw, res, _, wall, peak, counts in runs:
+        ph = res.phase_seconds
         card = ph["h2d"] + ph["kernels"] + ph["d2h"]
-        say(f"phase 5 corpus {label}: wall {wall:.3f} s -> {audio / wall:.1f}x "
-            f"realtime; host: parse {ph['parse']:.3f} s, emit {ph['emit']:.3f} "
-            f"s; card, overlapping the host: h2d {ph['h2d']:.4f} s, kernels "
-            f"{ph['kernels']:.4f} s, d2h {ph['d2h']:.4f} s, busy "
-            f"{100 * card / wall:.1f}% of the wall; peak device memory "
-            f"{peak:.0f} MiB")
-    return {"granules": res.granules, "audio_s": audio, "runs": runs}
+        widths = {}
+        for w in res.chunk_widths:
+            widths[w] = widths.get(w, 0) + 1
+        line = (f"phase 5 corpus [{label}] {kw}: wall {wall:.3f} s -> "
+                f"{audio / wall:.1f}x realtime; host: parse {ph['parse']:.3f} "
+                f"s, pack {ph['pack']:.3f} s, emit {ph['emit']:.3f} s; card, "
+                f"overlapping the host: h2d {ph['h2d']:.4f} s, kernels "
+                f"{ph['kernels']:.4f} s, d2h {ph['d2h']:.4f} s, busy "
+                f"{100 * card / wall:.1f}% of the wall; chunk widths "
+                f"{widths or 'three-array interface'}; wire "
+                f"{res.wire_bytes / res.granules:.1f} B/granule; graph replays "
+                f"{res.graph_replays}, captures {res.graph_capture_seconds:.3f} s")
+        say(f"{line}; peak device memory {peak:.0f} MiB; launches {counts}")
+        fused = kw.get("fused", True)
+        check(all(counts[n] > 0 for n in kernel_names if n != "unpack_fused"),
+              f"corpus [{label}]: a kernel of K1-K3 never ran")
+        check((counts["unpack_fused"] > 0) == fused,
+              f"corpus [{label}]: K4 ran {counts['unpack_fused']} times")
+        check((counts["segment_graph"] > 0) == ("drain" in kw),
+              f"corpus [{label}]: {counts['segment_graph']} graph replays")
+    return totals
 
 
 def main() -> int:
@@ -400,24 +626,30 @@ def main() -> int:
     dev = resolve_device(None)
     phase_device()
     rows = phase_kernels(dev, S_SMOKE, T_SMOKE)
+    rows["unpack_fused"] = phase_unpack(dev, S_SMOKE, T_SMOKE)
     phase_chunk_invariance(dev, S_SMOKE, T_SMOKE)
+    rows["segment_graph"] = phase_graph(dev, T_SMOKE)
 
-    K.reset_launch_counts()  # the main path's run starts here
+    K.reset_launch_counts()  # the main path's runs start here
     phase_decoder(dev)
-    after_decoder = K.launch_counts()
-    phase_corpus(dev, corpus_lanes())
-    counts = K.launch_counts()
-    say(f"launches: Decoder {after_decoder}, Decoder + corpus {counts}")
-    check(all(n > 0 for n in after_decoder.values()), "a kernel never ran in the Decoder")
-    check(all(counts[k] > after_decoder[k] for k in counts), "a kernel never ran in the corpus")
+    decoder = K.launch_counts()
+    say(f"launches: Decoder {decoder}")
+    check(all(n > 0 for name, n in decoder.items() if name != "unpack_fused"),
+          "a kernel of K1-K3 never ran in the Decoder")
+    counts = phase_corpus(dev, corpus_lanes())
+    for name, n in decoder.items():
+        counts[name] += n
     check(not any(m == "jax" or m.startswith(("jax.", "go_mp3_tpu.ops"))
                   for m in sys.modules), "jax or go_mp3_tpu.ops was imported")
 
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_ROWS[name][0],
-         "replaces": KERNEL_ROWS[name][1], "launches": counts[name], **rows[name]}
-        for name in KERNEL_ROWS
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[name], **rows[name]}
+        for name, (src, rep) in KERNEL_ROWS.items()
     ]
+    kernels.append({"name": "segment_graph", "route": "cuda_graph",
+                    "source": GRAPH_ROW[0], "replaces": GRAPH_ROW[1],
+                    "launches": counts["segment_graph"], **rows["segment_graph"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

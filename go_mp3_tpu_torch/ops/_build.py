@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from go_mp3_tpu_torch/csrc at first use.
 
-nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
+nvcc compiles every csrc/*.cu for sm_90a (one process per source, run
+side by side) and links them into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in build/go_mp3_tpu_torch/<hash>/ at the repo
 root, keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import.
@@ -24,9 +25,10 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "go_mp3_tpu_torch"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+_LINK_FLAGS = ["-shared"]  # nvcc's default static cudart
 _LIB_NAME = "libgomp3_kernels.so"
 
 _lib = None
@@ -49,7 +51,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_FLAGS + _LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -57,20 +59,36 @@ def library_path() -> Path:
 
 
 def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            errors.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
+    if not errors:
+        cmd = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *(str(j[1]) for j in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            errors.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
     build_seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
+    (out.parent / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -91,6 +109,7 @@ def load():
         ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, p]),
         ("gomp3_synth_init", [i, p, p]),
         ("gomp3_synth", [i, p, p, p, p, p, p, p, i, i, p]),
+        ("gomp3_unpack_fused", [i, p, p, p, p, i, i, i, i, p]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

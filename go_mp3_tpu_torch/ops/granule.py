@@ -8,6 +8,10 @@ ops/kernels.py against it on the card:
   antialias -> IMDCT -> overlap-add -> freq inv (kernel K2, hybrid.cu)
   polyphase matrixing + FIR -> int16, state    (kernel K3, synth.cu)
 
+and in front of them, on the corpus path, the fused-wire unpack (kernel
+K4, unpack_fused.cu; plain versions unpack_fused_ref and
+unpack_fused_mono_ref).
+
 Every tensor carries a leading stream axis written out: [S, T, ...] for S
 streams of T granules each (the JAX package vmaps a [T, ...] function).
 
@@ -26,11 +30,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from go_mp3_tpu.consts import HEAD_LINES, SAMPLES_PER_GR, SIDE_WIDTH
+from go_mp3_tpu.consts import HEAD_LINES, SAMPLES_PER_GR, SIDE8_WIDTH, SIDE_WIDTH
 
 from . import tables as T
 
 _F32 = torch.float32
+_TAIL_LINES = SAMPLES_PER_GR - HEAD_LINES  # per-channel int8 tail lines
 
 
 class GranuleBatch(NamedTuple):
@@ -445,6 +450,41 @@ def batch_from_packed8(
     meta = u[..., 0:44:2] | (u[..., 1:44:2] << 8)
     words = torch.cat([meta, u[..., 44:166]], dim=-1)
     return _batch_from_side_words(spec.reshape(s_dim, t_dim, 1152), words)
+
+
+def _unpack_fused_rows(buf: torch.Tensor, t: int, tail_lines: int, nch: int):
+    """K4's plain version over stereo (nch=2) or mono (nch=1) fused rows
+    [S, n] u8 (ops/wire.py layout) -> (tail8 i8 [S,T,1024], head16 i16
+    [S,T,128], side8 u8 [S,T,168]): tail lines past tail_lines are zero,
+    and so is channel 1 of a mono row."""
+    s_dim = buf.shape[0]
+    head_lines = nch * HEAD_LINES
+    a = nch * tail_lines * t
+    b = a + t * 2 * head_lines
+    tail = torch.zeros((s_dim, 2, _TAIL_LINES, t), dtype=torch.int8,
+                       device=buf.device)
+    tail[:, :nch, :tail_lines] = buf[:, :a].reshape(
+        s_dim, nch, tail_lines, t).view(torch.int8)
+    tail = tail.permute(0, 3, 1, 2).reshape(s_dim, t, 2 * _TAIL_LINES).contiguous()
+    hb = buf[:, a:b].reshape(s_dim, t, head_lines, 2).to(torch.int32)
+    v = hb[..., 0] | (hb[..., 1] << 8)
+    head = torch.zeros((s_dim, t, 2 * HEAD_LINES), dtype=torch.int16,
+                       device=buf.device)
+    head[..., :head_lines] = (v - 2 * (v & 32768)).to(torch.int16)  # sign-extend
+    side = buf[:, b:].reshape(s_dim, t, SIDE8_WIDTH).contiguous()
+    return tail, head, side
+
+
+def unpack_fused_ref(buf: torch.Tensor, t: int, tail_lines: int):
+    """Stereo fused rows -> the packed8 arrays
+    (go_mp3_tpu/ops/granule.py:661-683)."""
+    return _unpack_fused_rows(buf, t, tail_lines, nch=2)
+
+
+def unpack_fused_mono_ref(buf: torch.Tensor, t: int, tail_lines: int):
+    """Mono fused rows -> the packed8 arrays, channel 1 zero
+    (go_mp3_tpu/ops/granule.py:696-723)."""
+    return _unpack_fused_rows(buf, t, tail_lines, nch=1)
 
 
 def batch_from_any(packed: tuple) -> GranuleBatch:

@@ -10,8 +10,10 @@ in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
   requant_stereo  K1  csrc/requant_stereo.cu  unpack, requantize, stereo
   hybrid          K2  csrc/hybrid.cu          antialias .. freq inversion
   synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
+  unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
 
-decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk.
+decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk; decode_chunk_fused
+puts K4 in front of them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from go_mp3_tpu.consts import HEAD_WIDTH, SIDE8_WIDTH, SIDE_WIDTH, SP8_TAIL_WIDT
 from . import _build
 from . import granule as G
 from . import tables as T
+from . import wire
 
 _ready_devices: set[int] = set()
 
@@ -140,21 +143,25 @@ def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
 
 
 def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
-          valid: torch.Tensor):
+          valid: torch.Tensor, out: torch.Tensor | None = None):
     """K3. x18 f32 [S,T,2,32,18], ginfo int32 [S,T], v_fifo f32
     [S,2,16,64], valid int32 [S] -> (pcm int16 [S, T*576, 2], v_fifo
-    after valid granules)."""
+    after valid granules). `out`, if given, receives the PCM."""
     dev = x18.device
     s_dim, t_dim = x18.shape[:2]
     _expect(x18, "x18", torch.float32, (s_dim, t_dim, 2, 32, 18), dev)
     _expect(ginfo, "ginfo", torch.int32, (s_dim, t_dim), dev)
     _expect(v_fifo, "v_fifo", torch.float32, (s_dim, 2, 16, 64), dev)
     _expect(valid, "valid", torch.int32, (s_dim,), dev)
+    if out is not None:
+        _expect(out, "out", torch.int16, (s_dim, t_dim * 576, 2), dev)
     if not _route(dev):
-        return G.synth_ref(x18, ginfo, v_fifo, valid)
+        pcm, fifo = G.synth_ref(x18, ginfo, v_fifo, valid)
+        return (pcm if out is None else out.copy_(pcm)), fifo
     lib, idx = _library(dev)
     vs = torch.empty((s_dim, 2, t_dim * 18, 64), dtype=torch.float32, device=dev)
-    pcm = torch.empty((s_dim, t_dim * 576, 2), dtype=torch.int16, device=dev)
+    pcm = out if out is not None else torch.empty(
+        (s_dim, t_dim * 576, 2), dtype=torch.int16, device=dev)
     fifo_out = torch.empty_like(v_fifo)
     _check_rc("synth", lib.gomp3_synth(
         idx, x18.data_ptr(), ginfo.data_ptr(), v_fifo.data_ptr(), valid.data_ptr(),
@@ -165,7 +172,34 @@ def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
     return pcm, fifo_out
 
 
-KERNELS = (requant_stereo, hybrid, synth)
+def unpack_fused(buf: torch.Tensor, t: int, tail_lines: int, mono: bool = False):
+    """K4. Fused rows u8 [S, wire.stream_nbytes(t, tail_lines, mono)] ->
+    (tail8 i8 [S,T,1024], head16 i16 [S,T,128], side8 u8 [S,T,168]), the
+    int8 interface of requant_stereo."""
+    dev = buf.device
+    s_dim = buf.shape[0]
+    if not 0 <= tail_lines <= wire.TAIL_LINES_FULL:
+        raise ValueError(f"tail_lines {tail_lines} outside 0..{wire.TAIL_LINES_FULL}")
+    _expect(buf, "buf", torch.uint8,
+            (s_dim, wire.stream_nbytes(t, tail_lines, mono)), dev)
+    if not _route(dev):
+        ref = G.unpack_fused_mono_ref if mono else G.unpack_fused_ref
+        return ref(buf, t, tail_lines)
+    lib, idx = _library(dev)
+    tail8 = torch.empty((s_dim, t, SP8_TAIL_WIDTH), dtype=torch.int8, device=dev)
+    head16 = torch.empty((s_dim, t, HEAD_WIDTH), dtype=torch.int16, device=dev)
+    side8 = torch.empty((s_dim, t, SIDE8_WIDTH), dtype=torch.uint8, device=dev)
+    if s_dim and t:
+        _check_rc("unpack_fused", lib.gomp3_unpack_fused(
+            idx, buf.data_ptr(), tail8.data_ptr(), head16.data_ptr(),
+            side8.data_ptr(), s_dim, t, tail_lines, 1 if mono else 2,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+        unpack_fused.launches += 1
+    return tail8, head16, side8
+
+
+KERNELS = (requant_stereo, hybrid, synth, unpack_fused)
 
 
 def reset_launch_counts() -> None:
@@ -180,11 +214,22 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def decode_chunk(packed: tuple, state: G.DecodeState, valid: torch.Tensor):
+def decode_chunk(packed: tuple, state: G.DecodeState, valid: torch.Tensor,
+                 out: torch.Tensor | None = None):
     """One [S, T] chunk of packed granules (either interface of
     requant_stereo) plus the state -> (pcm int16 [S, T*576, 2], state
-    after each stream's valid granules). K1 -> K2 -> K3."""
+    after each stream's valid granules). K1 -> K2 -> K3; `out`, if given,
+    receives the PCM."""
     x, ginfo = requant_stereo(packed)
     x18, store = hybrid(x, ginfo, state.store, valid)
-    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid)
+    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid, out=out)
     return pcm, G.DecodeState(store=store, v_fifo=fifo)
+
+
+def decode_chunk_fused(buf: torch.Tensor, state: G.DecodeState,
+                       valid: torch.Tensor, t: int, tail_lines: int,
+                       mono: bool = False, out: torch.Tensor | None = None):
+    """decode_chunk over one chunk of fused rows: K4 -> K1 -> K2 -> K3
+    (decode_chunk_fused_batch_impl and decode_chunk_fused_mono_batch_impl,
+    go_mp3_tpu/ops/granule.py:726-741)."""
+    return decode_chunk(unpack_fused(buf, t, tail_lines, mono), state, valid, out)

@@ -1,20 +1,36 @@
 """Multi-stream corpus decoding on one device: the throughput entry point.
 
-Counterpart of decode_corpus_fast in go_mp3_tpu/parallel/corpus.py. The C++
-parser fills one [S, T] chunk of every stream at a time into pinned host
-buffers (the int8 interface: int8 tail, int16 head, byte sidecar); the chunk
-is copied to the card asynchronously, K1 -> K2 -> K3 decode it with the
-per-stream state carried on the card, and the PCM returns to pinned host
-memory. Everything runs on one CUDA stream in order; the host parses chunk
-c+1 while the card works on chunk c.
+Counterpart of decode_corpus_fast in go_mp3_tpu/parallel/corpus.py, with
+the JAX function's options and defaults (mesh aside). The C++ parser fills
+[S, T] chunks of every stream into host arrays; the chunks reach the card
+in pinned, double-buffered host buffers and are decoded with the
+per-stream state carried on the card, on one CUDA stream, while the host
+parses the next chunk or segment.
+
+fused=True (the default) is the production path:
+ - lanes whose first frame is mono ship the half-width mono wire
+   (mono_split), stereo lanes the stereo wire (ops/wire.py); each lane
+   group decodes on its own, and results come back in the caller's order;
+ - tail_buckets caps each group's shipped tail lines at the smallest
+   bucket covering the nonzero lines (exact: the extent is scanned);
+ - on the card K4 unpacks the wire and K1 -> K2 -> K3 decode it, chunk by
+   chunk (parallel/segment.py run_segment_eager), or with drain=k as one
+   captured CUDA graph per k-chunk segment (SegmentGraph);
+ - n_threads > 1 parses disjoint lane blocks in worker threads.
+fused=False is the three-array int8 interface; both paths drop to the int16
+interface when a stream's tail spectra overflow int8 (an input-range path,
+on the same device).
 """
 
 from __future__ import annotations
 
 import itertools
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from go_mp3_tpu.consts import (
@@ -29,6 +45,32 @@ from go_mp3_tpu.native.lib import BatchParser, NativeParser
 from ..device import resolve_device
 from ..ops.granule import init_state
 from ..ops.kernels import decode_chunk
+from ..ops.wire import (
+    TAIL_LINES_FULL,
+    build_fused_chunk,
+    build_fused_chunk_mono,
+    bucket_tail_lines,
+    chunk_all_mono,
+    stream_nbytes,
+    tail_cap_lines,
+    tail_need_lines,
+)
+from .segment import SegmentGraph, run_segment_eager, static_slots
+
+# public here as in go_mp3_tpu.parallel.corpus
+__all__ = [
+    "CorpusResult",
+    "DeviceCorpus",
+    "build_fused_chunk",
+    "build_fused_chunk_mono",
+    "bucket_tail_lines",
+    "chunk_all_mono",
+    "decode_corpus_fast",
+    "tail_cap_lines",
+    "tail_need_lines",
+]
+
+_PHASES = ("parse", "pack", "h2d", "kernels", "d2h", "emit")
 
 
 @dataclass
@@ -36,11 +78,30 @@ class CorpusResult:
     pcm: list[bytes]  # per-stream s16le stereo PCM
     granules: int  # total granules decoded
     samples: int  # total output samples (per channel)
-    # seconds by phase: "parse" and "emit" (PCM rows copied out of the
-    # pinned buffers and joined per stream) on the host clock; "h2d",
-    # "kernels", "d2h" as CUDA event time on the card's stream (host clock
-    # on the CPU)
+    # seconds by phase: "parse", "pack" (fused wire rows built from the
+    # parsed arrays, tail extents scanned) and "emit" (PCM rows copied out
+    # of the pinned buffers and joined per stream) on the host clock;
+    # "h2d", "kernels", "d2h" as CUDA event time on the card's stream (host
+    # clock on the CPU)
     phase_seconds: dict = field(default_factory=dict)
+    # each chunk's shipped tail width per lane group (fused path; stereo
+    # group first), the input bytes copied to the device, and this run's
+    # SegmentGraph replays and captures (host seconds, warm-up included)
+    chunk_widths: list = field(default_factory=list)
+    wire_bytes: int = 0
+    graph_replays: int = 0
+    graph_capture_seconds: float = 0.0
+
+
+class DeviceCorpus(tuple):
+    """fetch=False's result: (pcm, valids), which unpacks like
+    go_mp3_tpu's; `stats` is the run's CorpusResult without PCM (phase
+    split, widths, wire bytes)."""
+
+    def __new__(cls, pcm: torch.Tensor, valids: np.ndarray, stats: CorpusResult):
+        self = super().__new__(cls, (pcm, valids))
+        self.stats = stats
+        return self
 
 
 class _Timer:
@@ -50,7 +111,7 @@ class _Timer:
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.host = dict.fromkeys(("parse", "h2d", "kernels", "d2h", "emit"), 0.0)
+        self.host = dict.fromkeys(_PHASES, 0.0)
         self.events: list[tuple[str, object, object]] = []
 
     def mark(self):
@@ -73,22 +134,59 @@ class _Timer:
         return out
 
 
+class _MonoSplitMismatch(Exception):
+    """A lane classed mono by its first frame produced a stereo granule:
+    the mono wire cannot carry it, so the corpus reruns unsplit."""
+
+
 def decode_corpus_fast(
-    stream_bytes: list[bytes], chunk_t: int = 240, device=None
-) -> CorpusResult:
+    stream_bytes: list[bytes],
+    chunk_t: int = 256,
+    fetch: bool = True,
+    drain: int | None = None,
+    fused: bool = True,
+    tail_buckets: tuple[int, ...] | None = None,
+    n_threads: int = 1,
+    mono_split: bool = True,
+    device=None,
+):
     """Decode independent MP3 streams in lockstep [S, chunk_t] chunks.
 
+    Returns a CorpusResult; with fetch=False, (pcm int16 [C, S,
+    chunk_t*576, 2] on the device, valids int32 [C, S] numpy), both in the
+    caller's lane order, as go_mp3_tpu's decode_corpus_fast returns them,
+    once the card has finished (a DeviceCorpus, whose .stats has the
+    run's phase split). fetch=False holds the whole corpus's PCM on the card, twice over for a
+    moment at the end (per-chunk rows, then their stack).
+
+    drain=k (fused, fetch=True): decode in segments of k chunks, each a
+    replay of one captured CUDA graph (an eager loop on the CPU); host and
+    device memory stay O(k). fetch=False ignores it, as the JAX function
+    does. tail_buckets: ascending per-channel tail widths to cap the wire
+    at (per chunk, or per segment with drain). n_threads: parser worker
+    threads on disjoint lane blocks (fused path). mono_split: the mono
+    wire for lanes whose first frame is mono (fused path).
+
     device: None means CUDA (raises where CUDA is unavailable); "cpu" runs
-    the plain PyTorch chain. Streams whose tail spectra overflow the int8
-    interface are decoded through the int16 interface instead (an input
-    range path; the device path is the same)."""
+    the plain PyTorch chain."""
     device = resolve_device(device)
+    if drain is not None and drain < 1:
+        raise ValueError(f"drain must be >= 1, got {drain}")
     if not stream_bytes:
         return CorpusResult(pcm=[], granules=0, samples=0)
+    if fused:
+        try:
+            opts = (chunk_t, fetch, drain, tail_buckets, n_threads, device)
+            try:
+                return _decode_fused(stream_bytes, *opts, split=mono_split)
+            except _MonoSplitMismatch:
+                return _decode_fused(stream_bytes, *opts, split=False)
+        except OverflowError:
+            return _decode(stream_bytes, chunk_t, device, fetch, int8=False)
     try:
-        return _decode(stream_bytes, chunk_t, device, int8=True)
+        return _decode(stream_bytes, chunk_t, device, fetch, int8=True)
     except OverflowError:
-        return _decode(stream_bytes, chunk_t, device, int8=False)
+        return _decode(stream_bytes, chunk_t, device, fetch, int8=False)
 
 
 class _Int8Chunks:
@@ -135,7 +233,8 @@ class _Int16Chunks:
             p.close()
 
 
-def _decode(streams, chunk_t, device, int8: bool) -> CorpusResult:
+def _decode(streams, chunk_t, device, fetch: bool, int8: bool):
+    """The three-array interfaces, one chunk at a time."""
     n_streams = len(streams)
     cuda = device.type == "cuda"
     timer = _Timer(device)
@@ -157,8 +256,9 @@ def _decode(streams, chunk_t, device, int8: bool) -> CorpusResult:
     # a set is refilled only after its H2D copies completed ("copied")
     bufs = (host_buffers(), host_buffers())
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
+    kept, valid_rows = [], []  # fetch=False: PCM on the device, valids
     state = init_state(n_streams, device)
-    total = 0
+    total = wire_bytes = 0
     pending = None  # (pcm host buffer, valids, event marking its D2H done)
 
     def emit(pcm_host, valids, done) -> None:
@@ -186,6 +286,7 @@ def _decode(streams, chunk_t, device, int8: bool) -> CorpusResult:
                 break
             total += int(valids.sum())
 
+            wire_bytes += sum(a.numel() * a.element_size() for a in buf["in"])
             e0 = timer.mark()
             dev_in = tuple(a.to(device, non_blocking=True) for a in buf["in"])
             valid_dev = buf["valid"].to(device, non_blocking=True)
@@ -193,10 +294,14 @@ def _decode(streams, chunk_t, device, int8: bool) -> CorpusResult:
             buf["copied"] = e1 if cuda else None
             pcm_dev, state = decode_chunk(dev_in, state, valid_dev)
             e2 = timer.mark()
-            buf["pcm"].copy_(pcm_dev, non_blocking=True)
-            e3 = timer.mark()
             timer.add("h2d", e0, e1)
             timer.add("kernels", e1, e2)
+            if not fetch:
+                kept.append(pcm_dev)
+                valid_rows.append(valids.copy())
+                continue
+            buf["pcm"].copy_(pcm_dev, non_blocking=True)
+            e3 = timer.mark()
             timer.add("d2h", e2, e3)
 
             if pending is not None:
@@ -206,14 +311,274 @@ def _decode(streams, chunk_t, device, int8: bool) -> CorpusResult:
             emit(*pending)
     finally:
         source.close()
+    if not fetch and kept:
+        stacked = torch.stack(kept)
     if cuda:
         torch.cuda.current_stream(device).synchronize()
     t0 = time.perf_counter()
     pcm = [b"".join(p) for p in parts]
     timer.add("emit", t0, time.perf_counter())
-    return CorpusResult(
+    res = CorpusResult(
         pcm=pcm,
         granules=total,
         samples=total * SAMPLES_PER_GR,
         phase_seconds=timer.seconds(),
+        wire_bytes=wire_bytes,
     )
+    if fetch or not kept:
+        return res
+    return DeviceCorpus(stacked, np.stack(valid_rows), res)
+
+
+# -- the fused path ----------------------------------------------------------
+
+
+class _Group(NamedTuple):
+    """Lanes [lo, hi) of the internal order; mono: the mono wire."""
+
+    lo: int
+    hi: int
+    mono: bool
+
+
+def _mono_first_frame(data: bytes) -> bool:
+    """go_mp3_tpu/parallel/corpus.py:382-394: is the first frame mono?"""
+    import io
+
+    from go_mp3_tpu.bitstream import Source, read_header
+    from go_mp3_tpu.bitstream.frameheader import Mode
+
+    try:
+        src = Source(io.BytesIO(data))
+        src.skip_tags()
+        h, _ = read_header(src, src.pos)
+        return h.mode == Mode.SINGLE_CHANNEL
+    except Exception:
+        return False  # unclassifiable: the stereo wire carries anything
+
+
+class _SegmentParser:
+    """Parses up to k chunks of every lane into one host pool [k, S, T, ..]
+    (lane order internal), one C call per chunk or, with n_threads > 1,
+    one per contiguous lane block and worker (each worker owns its
+    parsers and its rows: GIL-free, byte-identical to serial,
+    go_mp3_tpu/parallel/corpus.py:432-463)."""
+
+    def __init__(self, streams, k, chunk_t, groups, n_threads):
+        n = len(streams)
+        self.groups = groups
+        self.tail = np.empty((k, n, chunk_t, SP8_TAIL_WIDTH), np.int8)
+        self.head = np.empty((k, n, chunk_t, HEAD_WIDTH), np.int16)
+        self.side = np.empty((k, n, chunk_t, SIDE8_WIDTH), np.uint8)
+        self.valids = np.zeros((k, n), np.int32)
+        self.batch = BatchParser(streams)
+        self.pool = None
+        if n_threads > 1:
+            w = min(n_threads, n)
+            bounds = [round(i * n / w) for i in range(w + 1)]
+            self.blocks = list(zip(bounds, bounds[1:]))
+            self.pool = ThreadPoolExecutor(max_workers=w)
+
+    def parse(self) -> int:
+        """Fill the pool; -> the number of chunks with any granule (less
+        than k once every stream has ended; the valid counts of the
+        chunks past it are 0)."""
+        self.valids[:] = 0
+        for c in range(len(self.valids)):
+            arrays = (self.tail[c], self.head[c], self.side[c], self.valids[c])
+            if self.pool is None:
+                self.batch.parse_chunk_into(*arrays)
+            else:
+                for f in [self.pool.submit(self.batch.parse_chunk_into, *arrays,
+                                           lo=lo, hi=hi)
+                          for lo, hi in self.blocks]:
+                    f.result()
+            if not self.valids[c].any():
+                return c
+            for g in self.groups:
+                if g.mono and not chunk_all_mono(self.side[c, g.lo:g.hi],
+                                                 self.valids[c, g.lo:g.hi]):
+                    raise _MonoSplitMismatch()
+        return len(self.valids)
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+        self.batch.close()
+
+
+def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
+                  device, split: bool):
+    n_streams = len(streams)
+    cuda = device.type == "cuda"
+    timer = _Timer(device)
+    t = chunk_t
+
+    # lane groups: stereo lanes first, then mono (run_fused, :503-536)
+    order = list(range(n_streams))
+    groups = (_Group(0, n_streams, False),)
+    if split:
+        flags = [_mono_first_frame(d) for d in streams]
+        if any(flags):
+            order = ([i for i, f in enumerate(flags) if not f]
+                     + [i for i, f in enumerate(flags) if f])
+            n_stereo = n_streams - sum(flags)
+            groups = tuple(g for g in (_Group(0, n_stereo, False),
+                                       _Group(n_stereo, n_streams, True))
+                           if g.hi > g.lo)
+    sizes = tuple(g.hi - g.lo for g in groups)
+    monos = tuple(g.mono for g in groups)
+    segmented = drain is not None and fetch
+    k = drain if segmented else 1
+
+    def host_set():
+        """Pinned rows for one segment: the wire stacks (sized for the
+        full width, viewed at the segment's), valids and PCM per group."""
+        return {
+            "wire": [torch.empty(k * s * stream_nbytes(t, TAIL_LINES_FULL, m),
+                                 dtype=torch.uint8, pin_memory=cuda)
+                     for s, m in zip(sizes, monos)],
+            "valid": [torch.empty((k, s), dtype=torch.int32, pin_memory=cuda)
+                      for s in sizes],
+            "pcm": [torch.empty((k, s, t * SAMPLES_PER_GR, 2), dtype=torch.int16,
+                                pin_memory=cuda) for s in sizes] if fetch else None,
+            "copied": None,
+        }
+
+    sets = (host_set(), host_set())
+    parser = _SegmentParser([streams[i] for i in order], k, t, groups, n_threads)
+    parts: list[list[bytes]] = [[] for _ in range(n_streams)]
+    kept, valid_rows = [], []  # fetch=False: caller-order PCM per chunk
+    caller_idx = ([] if fetch else
+                  [torch.tensor(order[g.lo:g.hi], device=device) for g in groups])
+    states = tuple(init_state(s, device) for s in sizes)
+    use_graph = segmented and cuda
+    slots = static_slots(k, t, sizes, device) if use_graph else None
+    graphs: dict = {}  # one SegmentGraph per width tuple
+    widths_log, wire_bytes, total, capture_s = [], 0, 0, 0.0
+    replays0 = SegmentGraph.replays
+    pending = None  # (host set, valids [k, S] internal, chunks, D2H event)
+
+    def emit(hs, valids, n_seg, done) -> None:
+        if done is not None:
+            done.synchronize()
+        t0 = time.perf_counter()
+        for g, pcm in zip(groups, hs["pcm"]):
+            host = pcm.numpy()
+            for c in range(n_seg):
+                for s in range(g.lo, g.hi):
+                    v = int(valids[c, s])
+                    if v:
+                        parts[order[s]].append(
+                            host[c, s - g.lo, : v * SAMPLES_PER_GR].tobytes())
+        timer.add("emit", t0, time.perf_counter())
+
+    try:
+        for seg in itertools.count():
+            hs = sets[seg % 2]
+            if hs["copied"] is not None:
+                hs["copied"].synchronize()
+            t0 = time.perf_counter()
+            n_seg = parser.parse()
+            timer.add("parse", t0, time.perf_counter())
+            if n_seg == 0:
+                break
+
+            # widths: per chunk (k = 1), or per segment with drain, the
+            # bucket of the largest exact extent; then the wire rows
+            t0 = time.perf_counter()
+            widths = tuple(
+                bucket_tail_lines(
+                    max(tail_need_lines(parser.tail[c, g.lo:g.hi])
+                        for c in range(n_seg)),
+                    tail_buckets)
+                if tail_buckets else TAIL_LINES_FULL
+                for g in groups
+            )
+            wires = []
+            for g, w, flat, vbuf in zip(groups, widths, hs["wire"], hs["valid"]):
+                rows = flat[: k * (g.hi - g.lo) * stream_nbytes(t, w, g.mono)]
+                rows = rows.view(k, g.hi - g.lo, -1)
+                build = build_fused_chunk_mono if g.mono else build_fused_chunk
+                for c in range(n_seg):
+                    build(parser.tail[c, g.lo:g.hi], parser.head[c, g.lo:g.hi],
+                          parser.side[c, g.lo:g.hi], w, out=rows[c].numpy())
+                rows[n_seg:] = 0  # padding chunks of a short last segment
+                vbuf.numpy()[:] = parser.valids[:, g.lo:g.hi]
+                wires.append(rows)
+                wire_bytes += rows.numel()
+            widths_log += [widths] * n_seg
+            valids = parser.valids.copy()
+            total += int(valids.sum())
+            timer.add("pack", t0, time.perf_counter())
+
+            e0 = timer.mark()
+            if use_graph:
+                graph = graphs.get(widths)
+                if graph is None:
+                    graph = graphs[widths] = SegmentGraph(t, widths, monos, *slots)
+                    e0 = timer.mark()  # capture is set-up, not h2d
+                    capture_s += graph.capture_seconds
+                for dst, src in zip(graph.bufs, wires):
+                    dst.copy_(src, non_blocking=True)
+                for dst, src in zip(slots[0], hs["valid"]):
+                    dst.copy_(src, non_blocking=True)
+                e1 = timer.mark()
+                graph.replay()
+                pcm_dev = slots[2]
+            else:
+                bufs_dev = [w.to(device, non_blocking=True) for w in wires]
+                valids_dev = [v.to(device, non_blocking=True) for v in hs["valid"]]
+                e1 = timer.mark()
+                pcm_dev, states = run_segment_eager(
+                    bufs_dev, valids_dev, states, t, widths, monos)
+            if not fetch:  # caller-order rows, on the card
+                for c in range(n_seg):
+                    rows = torch.empty((n_streams, t * SAMPLES_PER_GR, 2),
+                                       dtype=torch.int16, device=device)
+                    for idx, pcm in zip(caller_idx, pcm_dev):
+                        rows.index_copy_(0, idx, pcm[c])
+                    kept.append(rows)
+                    valid_rows.append(valids[c])
+            e2 = timer.mark()
+            hs["copied"] = e1 if cuda else None
+            timer.add("h2d", e0, e1)
+            timer.add("kernels", e1, e2)
+            if fetch:
+                for dst, src in zip(hs["pcm"], pcm_dev):
+                    dst.copy_(src, non_blocking=True)
+                e3 = timer.mark()
+                timer.add("d2h", e2, e3)
+                if pending is not None:
+                    emit(*pending)
+                pending = (hs, valids, n_seg, e3 if cuda else None)
+            if n_seg < k:
+                break
+        if pending is not None:
+            emit(*pending)
+    finally:
+        parser.close()
+
+    if not fetch and kept:
+        stacked = torch.stack(kept)
+    if cuda:
+        torch.cuda.current_stream(device).synchronize()
+    t0 = time.perf_counter()
+    pcm = [b"".join(p) for p in parts]
+    timer.add("emit", t0, time.perf_counter())
+    res = CorpusResult(
+        pcm=pcm,
+        granules=total,
+        samples=total * SAMPLES_PER_GR,
+        phase_seconds=timer.seconds(),
+        chunk_widths=widths_log,
+        wire_bytes=wire_bytes,
+        graph_replays=SegmentGraph.replays - replays0,
+        graph_capture_seconds=capture_s,
+    )
+    if fetch or not kept:
+        return res
+    internal = np.stack(valid_rows)
+    caller = np.empty_like(internal)
+    caller[:, order] = internal
+    return DeviceCorpus(stacked, caller, res)

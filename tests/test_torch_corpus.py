@@ -69,7 +69,7 @@ def test_corpus_lane_equals_port_decoder(lanes, port_result):
 
 
 def test_corpus_phase_seconds_reported(port_result):
-    assert set(port_result.phase_seconds) == {"parse", "h2d", "kernels", "d2h", "emit"}
+    assert set(port_result.phase_seconds) == {"parse", "pack", "h2d", "kernels", "d2h", "emit"}
     assert all(v >= 0 for v in port_result.phase_seconds.values())
 
 

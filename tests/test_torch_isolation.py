@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from go_mp3_tpu_torch.ops import _build, kernels  # noqa: E402
+from go_mp3_tpu_torch.ops import _build, kernels, wire  # noqa: E402
 from go_mp3_tpu_torch.ops import granule as P  # noqa: E402
 import torch_synthetic as syn  # noqa: E402
 
@@ -25,8 +25,10 @@ MODULES = [
     "go_mp3_tpu_torch.ops.granule",
     "go_mp3_tpu_torch.ops.kernels",
     "go_mp3_tpu_torch.ops.tables",
+    "go_mp3_tpu_torch.ops.wire",
     "go_mp3_tpu_torch.parallel",
     "go_mp3_tpu_torch.parallel.corpus",
+    "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
 ]
 
@@ -77,7 +79,7 @@ def test_kernels_import_without_nvcc_or_triton(tmp_path):
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
-@pytest.mark.parametrize("name", ["requant_stereo", "hybrid", "synth"])
+@pytest.mark.parametrize("name", ["requant_stereo", "hybrid", "synth", "unpack_fused"])
 def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     """A wrapper given CPU tensors returns the plain version's result and
     counts no launch; the kernel library is never loaded."""
@@ -91,10 +93,13 @@ def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     state = P.init_state(2, "cpu")
     x, ginfo = P.requant_stereo_ref(P.batch_from_packed(*packed))
     x18, _ = P.hybrid_ref(x, ginfo, state.store, v)
+    buf = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, wire.fused_stream_nbytes(20, 301)), dtype=np.uint8))
     args = {
         "requant_stereo": ((packed,), (x, ginfo)),
         "hybrid": ((x, ginfo, state.store, v), P.hybrid_ref(x, ginfo, state.store, v)),
         "synth": ((x18, ginfo, state.v_fifo, v), P.synth_ref(x18, ginfo, state.v_fifo, v)),
+        "unpack_fused": ((buf, 20, 301), P.unpack_fused_ref(buf, 20, 301)),
     }[name]
     kernels.reset_launch_counts()
     got = getattr(kernels, name)(*args[0])
