@@ -14,7 +14,9 @@ first that fails:
  2. kernels against plain: K1, K2 and K3 each against its plain PyTorch
     version on the same seeded synthetic batch (S=64 streams x T=240
     granules, every block class, stereo mode and band variant, ragged valid
-    counts including 0), within stated bounds, and timed against it; K4
+    counts including 0), within stated bounds, and timed against it; K1 on
+    each of its three inputs (int8, int16, GranuleBatch), its GranuleBatch
+    route bit-identical to its int16 route on the same granules; K4
     (the fused-wire unpack) equal to its plain version and to the arrays
     the wire was built from, stereo and mono, full and capped width, and
     at an odd T and odd width;
@@ -25,6 +27,11 @@ first that fails:
  4. Decoder: a 94 s stream (conformance/synthetic_escape.mp3 x300) read
     whole and after a seek, against the exact C++ backend, ISO full
     compliance (RMS < 0.289 LSB, max diff <= 2), and a checkpoint/resume;
+ 4b. the Decoder's other sources, on the same stream: the pure-Python
+    parse path (use_native=False: StreamDecoder, K1's GranuleBatch route)
+    and the streaming parser over a non-seekable reader, both
+    byte-identical to phase 4's read; a GaplessDecoder read, byte-identical
+    to phase 4's read past the decoder delay;
  5. corpus: decode_corpus_fast over 64 rotated lanes (48 stereo lanes of
     escape x128, 16 mono lanes of lowrate x110: 193,216 granules, ~52 min
     of audio): the defaults (fused wire, mono split; cold and warm),
@@ -34,8 +41,16 @@ first that fails:
     same bytes, every lane ISO fully compliant against the exact backend;
     each run prints its phase split, widths, wire bytes, graph replays and
     the launches of every kernel;
+ 5b. decode_corpus, the pure-Python parse path of a corpus: the same 64
+    lanes cut to their first 768 granules (the Python parse and the
+    per-granule staging are host-bound), parsed by parse_stream_granules
+    and decoded in chunks of 128 through K1's GranuleBatch route;
+    byte-identical to decode_corpus_fast(fused=False) on the same cut
+    lanes, every lane ISO full against the exact backend;
  6. the last line: {"ok": true, "device": {...}}.
 
+Each phase of the main path (4 to 5b) starts with the launch counts at 0
+and checks that K1-K3 (and, in 4b and 5b, K1's GranuleBatch route) ran.
 The line before the last is a JSON object with one entry per kernel. The
 script imports torch, the port (go_mp3_tpu_torch, whose `reference` module
 gives the exact C++ backend and the ISO measure) and the seeded-granule
@@ -70,6 +85,7 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
 GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
              "go_mp3_tpu/ops/granule.py:726")
 N_STEREO, N_MONO = 48, 16  # lane groups of the smoke corpus
+SAMPLES_PER_GR_BYTES = 576 * 4  # PCM bytes of one granule
 
 
 def say(msg: str) -> None:
@@ -85,21 +101,33 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, queued: bool = True) -> float:
     """Mean milliseconds per call: CUDA events around `iters` calls after a
-    warm-up call."""
+    warm-up call. queued: the calls are enqueued behind a sleep kernel
+    long enough to hold them all, so the events time the card's work
+    alone; otherwise a call whose host side (the wrapper's checks, the
+    plain version's op dispatch) outlasts its card work is timed at its
+    host time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles = 50_000_000 if queued else 0
+    while True:
+        e0.record()
+        if cycles:
+            torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if not queued or e0.elapsed_time(a) > host_ms or cycles >= 2**31:
+            return a.elapsed_time(b) / iters
+        cycles *= 2  # the sleep ended before the host had enqueued every call
 
 
 def phase_device() -> None:
@@ -173,12 +201,13 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
     from go_mp3_tpu_torch.ops import kernels as K
 
     p16, p8, valid, state, _ = smoke_batch(s_dim, t_dim, dev)
+    batch = G.GranuleBatch(*(f.contiguous() for f in G.batch_from_packed(*p16)))
     rows = {}
 
-    # K1, both interfaces: requantize alone (2e-5 of the granule's scale,
-    # test_stage_parity's bound), then the stereo part on the kernel's own
-    # requantized input (1e-6)
-    for label, packed in (("int8", p8), ("int16", p16)):
+    # K1, each of its inputs: requantize alone (2e-5 of the granule's
+    # scale, test_stage_parity's bound), then the stereo part on the
+    # kernel's own requantized input (1e-6)
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch)):
         b = G.batch_from_any(packed)
         k_req, k_ginfo = K.requant_stereo(packed, stereo=False)
         ref_req, ref_ginfo = G.requant_stereo_ref(b, stereo=False)
@@ -199,6 +228,26 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
                 "plain_ms": time_ms(
                     lambda: G.requant_stereo_ref(G.batch_from_any(p8))),
             }
+    # the GranuleBatch route reads the int16 route's granules field by
+    # field: the same bits, requantized alone and whole
+    for stereo in (False, True):
+        a, b = K.requant_stereo(batch, stereo), K.requant_stereo(p16, stereo)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"K1 GranuleBatch route differs from the int16 route (stereo={stereo})")
+    k_x, _ = K.requant_stereo(batch)
+    route = {
+        "max_abs_err": float((k_x - G.requant_stereo_ref(batch)[0]).abs().max()),
+        "ms": time_ms(lambda: K.requant_stereo(batch)),
+        "plain_ms": time_ms(lambda: G.requant_stereo_ref(batch)),
+    }
+    rows["requant_stereo"]["routes"] = {"granule_batch": route}
+    say(f"phase 2 K1 requant_stereo [granule_batch]: bit-identical to the "
+        f"int16 route; kernel {route['ms']:.4f} ms, plain "
+        f"{route['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}; card time)")
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch)):
+        say(f"phase 2 K1 requant_stereo [{label}] per call, host included: "
+            f"{time_ms(lambda: K.requant_stereo(packed), queued=False):.4f} ms "
+            f"(card time {time_ms(lambda: K.requant_stereo(packed)):.4f} ms)")
 
     # K2: 2e-6 (the IMDCT bound of test_stage_parity) of the scale of what
     # each output sums, per (stream, granule, channel): that granule's lines
@@ -253,7 +302,7 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
     }
     for name, r in rows.items():
         say(f"phase 2 time {name}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms (S={s_dim}, T={t_dim})")
+            f"{r['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}; card time)")
     return rows
 
 
@@ -442,7 +491,8 @@ def _iso(a: bytes, b: bytes, what: str) -> tuple[float, int]:
     return rms, mx
 
 
-def phase_decoder(dev, times: int = 300) -> None:
+def phase_decoder(dev, times: int = 300) -> tuple[bytes, bytes, bytes]:
+    """-> (the stream, the Decoder's read_all, the exact backend's)."""
     import torch
 
     from go_mp3_tpu_torch import Decoder, reference
@@ -455,7 +505,8 @@ def phase_decoder(dev, times: int = 300) -> None:
     wall = time.perf_counter() - t0
     secs = len(pcm) / 4 / d.sample_rate()
     check(len(pcm) == d.length(), "Decoder: read_all length != length()")
-    rms, mx = _iso(pcm, reference.decode_exact(data), "Decoder read_all")
+    exact = reference.decode_exact(data)
+    rms, mx = _iso(pcm, exact, "Decoder read_all")
     seek_to = min(30.0, d.duration() / 2)
     n = 4 * d.sample_rate() * 5
     reads = []
@@ -475,6 +526,88 @@ def phase_decoder(dev, times: int = 300) -> None:
         f"({secs / wall:.1f}x realtime, one stream); vs exact RMS {rms:.4f} "
         f"max {mx}; seek_to_time({seek_to}) + 5 s read RMS {srms:.4f} max "
         f"{smx}; checkpoint/resume round-trips")
+    return data, pcm, exact
+
+
+class _NonSeekable:
+    """A pipe-like reader over bytes: no seek, no tell."""
+
+    def __init__(self, data: bytes):
+        self._data, self._pos = data, 0
+
+    def read(self, n: int = -1) -> bytes:
+        end = len(self._data) if n is None or n < 0 else self._pos + n
+        out = self._data[self._pos:end]
+        self._pos += len(out)
+        return out
+
+    def seekable(self) -> bool:
+        return False
+
+
+def _counts() -> dict:
+    """The launch counts since the last reset, with K1's GranuleBatch
+    route as "granule_batch"."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    return {**K.launch_counts(), "granule_batch": K.requant_stereo.batch_launches}
+
+
+def _check_chain(counts: dict, what: str, batch_route: bool) -> None:
+    check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth")),
+          f"{what}: a kernel of K1-K3 never ran ({counts})")
+    check((counts["granule_batch"] == counts["requant_stereo"]) == batch_route,
+          f"{what}: K1's GranuleBatch route ran {counts['granule_batch']} of "
+          f"{counts['requant_stereo']} times")
+
+
+def phase_decoder_paths(dev, data: bytes, native_pcm: bytes, exact: bytes) -> dict:
+    """The Decoder's pure-Python parse path, its streaming source and a
+    GaplessDecoder on phase 4's stream. -> launches summed over the three."""
+    import torch
+
+    from go_mp3_tpu_torch import Decoder, GaplessDecoder, NotSeekableError, lameinfo
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    totals: dict = {}
+    runs = (
+        ("use_native=False", lambda: Decoder(data, use_native=False, device=dev), True),
+        ("non-seekable source", lambda: Decoder(_NonSeekable(data), device=dev), False),
+        ("GaplessDecoder", lambda: GaplessDecoder(data, device=dev), False),
+    )
+    for label, make, batch_route in runs:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        d = make()
+        pcm = d.read_all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        _check_chain(counts, f"phase 4b {label}", batch_route)
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        secs = len(pcm) / 4 / d.sample_rate()
+        if label == "GaplessDecoder":
+            # no LAME tag on this stream: the decoder delay alone is cut
+            check(d.info is None and pcm == native_pcm[4 * lameinfo.DECODER_DELAY:],
+                  "phase 4b GaplessDecoder: not phase 4's read past the delay")
+            detail = f"= phase 4's read past {lameinfo.DECODER_DELAY} samples"
+        else:
+            check(pcm == native_pcm, f"phase 4b {label}: PCM differs from phase 4's")
+            rms, mx = _iso(pcm, exact, f"phase 4b {label}")
+            detail = f"= phase 4's read; vs exact RMS {rms:.4f} max {mx}"
+        if label == "non-seekable source":
+            check(d.length() == -1, "phase 4b streaming: length() is not -1")
+            try:
+                d.seek(0)
+                check(False, "phase 4b streaming: seek did not raise")
+            except NotSeekableError:
+                pass
+            detail += "; length() -1, seek raises NotSeekableError"
+        say(f"phase 4b Decoder [{label}]: {secs:.2f} s of audio in {wall:.3f} "
+            f"s ({secs / wall:.1f}x realtime) {detail}; launches {counts}")
+    return totals
 
 
 def corpus_lanes(n_escape: int = N_STEREO, n_lowrate: int = N_MONO,
@@ -606,6 +739,63 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
     return totals
 
 
+def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768) -> dict:
+    """decode_corpus over `lanes` cut to their first `depth` granules,
+    against decode_corpus_fast(fused=False) on the same cut lanes and the
+    exact backend. -> its launches."""
+    import torch
+
+    from go_mp3_tpu_torch import decode_corpus_fast
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.parallel import decode_corpus, parse_stream_granules
+    from go_mp3_tpu_torch.reference import decode_exact, index_stream
+
+    cut, rates, full = [], [], []
+    for lane in lanes:
+        starts, bpf, sr = index_stream(lane)
+        per_frame = bpf // SAMPLES_PER_GR_BYTES  # granules
+        cut.append(lane[: int(starts[depth // per_frame])])
+        rates.append(sr)
+        full.append(len(starts) * per_frame)
+    t0 = time.perf_counter()
+    streams = [parse_stream_granules(d) for d in cut]
+    parse_s = time.perf_counter() - t0
+    check(all(len(s) == depth for s in streams),
+          f"phase 5b: lanes parsed to {sorted({len(s) for s in streams})} granules")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = decode_corpus(streams, chunk_t=128, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _check_chain(counts, "phase 5b decode_corpus", True)
+
+    fast = decode_corpus_fast(cut, chunk_t=128, fused=False, device=dev)
+    check(res.pcm == fast.pcm, "phase 5b: decode_corpus differs from "
+          "decode_corpus_fast(fused=False) on the same lanes")
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        refs = list(pool.map(decode_exact, cut))
+    worst = (0.0, 0)
+    for i, (got, ref) in enumerate(zip(res.pcm, refs)):
+        rms, mx = _iso(got, ref, f"phase 5b lane {i}")
+        worst = (max(worst[0], rms), max(worst[1], mx))
+    audio = sum(len(p) / 4 / sr for p, sr in zip(res.pcm, rates))
+    ph = res.phase_seconds
+    say(f"phase 5b decode_corpus: {len(cut)} lanes cut to {depth} granules "
+        f"each (of {min(full)}-{max(full)}), "
+        f"{res.granules} granules, {audio:.2f} s of audio, chunk_t=128; "
+        f"parse_stream_granules {parse_s:.3f} s, decode_corpus wall "
+        f"{wall:.3f} s (pack {ph['pack']:.3f} s, h2d {ph['h2d']:.4f} s, "
+        f"kernels {ph['kernels']:.4f} s, d2h {ph['d2h']:.4f} s, emit "
+        f"{ph['emit']:.3f} s) -> {audio / wall:.1f}x realtime, "
+        f"{audio / (parse_s + wall):.1f}x with the parse; byte-identical to "
+        f"decode_corpus_fast(fused=False); every lane ISO full vs exact "
+        f"(worst RMS {worst[0]:.4f}, max {worst[1]}); launches {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -631,17 +821,22 @@ def main() -> int:
     rows["segment_graph"] = phase_graph(dev, T_SMOKE)
 
     K.reset_launch_counts()  # the main path's runs start here
-    phase_decoder(dev)
-    decoder = K.launch_counts()
+    data, native_pcm, exact = phase_decoder(dev)
+    decoder = _counts()
     say(f"launches: Decoder {decoder}")
-    check(all(n > 0 for name, n in decoder.items() if name != "unpack_fused"),
-          "a kernel of K1-K3 never ran in the Decoder")
-    counts = phase_corpus(dev, corpus_lanes())
-    for name, n in decoder.items():
-        counts[name] += n
-    check(not any(m == "jax" or m.startswith(("jax.", "go_mp3_tpu.ops"))
-                  for m in sys.modules), "jax or go_mp3_tpu.ops was imported")
+    _check_chain(decoder, "phase 4 Decoder", False)
+    lanes = corpus_lanes()
+    counts = dict(decoder)
+    for part in (phase_decoder_paths(dev, data, native_pcm, exact),
+                 phase_corpus(dev, lanes),
+                 phase_decode_corpus(dev, lanes)):
+        for name, n in part.items():
+            counts[name] = counts.get(name, 0) + n
+    check(not any(m == "jax" or m.startswith(
+        ("jax.", "go_mp3_tpu.ops", "go_mp3_tpu.models", "go_mp3_tpu.parallel"))
+        for m in sys.modules), "jax or a JAX-bound go_mp3_tpu module was imported")
 
+    rows["requant_stereo"]["routes"]["granule_batch"]["launches"] = counts["granule_batch"]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **rows[name]}

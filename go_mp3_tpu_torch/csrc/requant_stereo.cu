@@ -1,28 +1,32 @@
 // K1: unpack + requantize + MS/intensity stereo, one granule per block.
 //
-// Replaces: the XLA program of _requantize, _stereo and the packed unpack
-// (batch_from_packed / batch_from_packed8) in go_mp3_tpu/ops/granule.py
-// (:242-358, :560-608). Plain version: requant_stereo_ref in
-// go_mp3_tpu_torch/ops/granule.py.
+// Replaces: the XLA program of _requantize, _stereo and the loads in front
+// of them in go_mp3_tpu/ops/granule.py (:242-358): the packed unpacks
+// (batch_from_packed / batch_from_packed8, :560-608) and the GranuleBatch
+// that decode_chunk_impl takes as it is (:77-93, :493). Plain version:
+// requant_stereo_ref in go_mp3_tpu_torch/ops/granule.py.
 //
 // What bounds it on an H100: memory. Per granule it reads 1,152 spectral
-// values (2,624 bytes on the int8 interface, 2,592 on int16) and writes
-// 4,608 bytes of f32, for ~2 exp2f/log2f per line; the card moves bytes far
-// slower than it does that arithmetic.
+// values (2,624 bytes on the int8 interface, 2,592 on int16, 2,867 as a
+// GranuleBatch) and writes 4,608 bytes of f32, for ~2 exp2f/log2f per line;
+// the card moves bytes far slower than it does that arithmetic.
 //
 // Design: one block of 576 threads per granule, thread = line, both
 // channels in one thread (MS and intensity stereo mix the channels of a
-// line). The block first unpacks the side words into shared memory and
-// turns them into per-band values there: the requantize exponents (22 long
-// + 39 short per channel) and the intensity multipliers as deltas from 1.
-// Each line then reads its band through the per-line band maps (global
-// memory, one coalesced byte per thread) -- the index the TPU chain built
-// as one-hot matmuls. Spectra are read straight from the packed layout the
-// parser wrote (template flag: int8 tail + int16 head, or int16), so no
-// unpacked copy exists. Output stores are coalesced along the line axis.
-// exp2f/log2f are the accurate ones: the build has no --use_fast_math.
-// The block also writes the granule's ginfo word (block types, classes,
-// mono), which K2 and K3 read instead of the side words.
+// line). The block first loads the granule's side words into shared memory
+// and turns them into per-band values there: the requantize exponents (22
+// long + 39 short per channel) and the intensity multipliers as deltas
+// from 1. Each line then reads its band through the per-line band maps
+// (global memory, one coalesced byte per thread) -- the index the TPU chain
+// built as one-hot matmuls. Only the load differs between the three input
+// layouts (template parameter): the int16 side words, the int8 interface's
+// byte side words, or the GranuleBatch's 13 side fields, each read in its
+// own dtype and assembled into the same side words; spectra are read
+// straight from the arrays the caller holds (int8 tail + int16 head, or
+// int16), so no unpacked copy exists. Output stores are coalesced along the
+// line axis. exp2f/log2f are the accurate ones: the build has no
+// --use_fast_math. The block also writes the granule's ginfo word (block
+// types, classes, mono), which K2 and K3 read instead of the side words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +38,30 @@ constexpr int kHead = 64;               // per-channel int16 head lines
 constexpr int kTail = kLines - kHead;   // per-channel int8 tail lines
 constexpr int kSideWords = 144;
 constexpr int kSide8 = 168;
+constexpr int kFlagThread = 160;  // first thread of the warp after the side words
+
+// input layouts; the pointers in Inputs.p, in order:
+enum Layout : int {
+  kInt16 = 0,  // spectra i16 [n][1152], side i16 [n][144]
+  kInt8 = 1,   // tail8 i8 [n][1024], head16 i16 [n][128], side8 u8 [n][168]
+  kBatch = 2,  // the GranuleBatch fields in their order: spectra i16
+               // [n][2][576], scalefac_l i32 [n][2][22], scalefac_s i32
+               // [n][2][13][3], global_gain, scalefac_scale, preflag i32
+               // [n][2], subblock_gain i32 [n][2][3], block_type,
+               // block_class i32 [n][2], variant i32 [n], ms_flag, is_flag
+               // bool [n], count1_r i32 [n], mono bool [n]
+};
+constexpr int kMaxInputs = 14;
+struct Inputs {
+  const void* p[kMaxInputs];
+};
+
+__device__ __forceinline__ int i32_at(const void* p, size_t i) {
+  return static_cast<const int32_t*>(p)[i];
+}
+__device__ __forceinline__ int flag_at(const void* p, int g) {
+  return static_cast<const uint8_t*>(p)[g] != 0;
+}
 
 __constant__ float c_pretab[22];
 __constant__ float c_is_l[7];
@@ -44,10 +72,9 @@ __device__ uint8_t g_long_sfb[6][kLines];   // line -> long band
 __device__ uint8_t g_req_short[6][kLines];  // line -> sfb*3+win (requantize)
 __device__ uint8_t g_is_short[6][kLines];   // line -> sfb*3+win (intensity)
 
-template <bool kPacked8>
+template <int kLayout>
 __global__ void __launch_bounds__(kLines)
-requant_stereo_kernel(const void* __restrict__ p0, const void* __restrict__ p1,
-                      const void* __restrict__ p2, float* __restrict__ out,
+requant_stereo_kernel(const Inputs in, float* __restrict__ out,
                       int32_t* __restrict__ ginfo, int stereo) {
   const int g = blockIdx.x;   // granule: stream * T + t
   const int l = threadIdx.x;  // line
@@ -57,13 +84,37 @@ requant_stereo_kernel(const void* __restrict__ p0, const void* __restrict__ p1,
   __shared__ float d_long[2][22];   // intensity multiplier - 1, [left/right]
   __shared__ float d_short[2][39];
 
-  if (kPacked8) {
-    const uint8_t* s8 = static_cast<const uint8_t*>(p2) + (size_t)g * kSide8;
+  if (kLayout == kInt8) {
+    const uint8_t* s8 = static_cast<const uint8_t*>(in.p[2]) + (size_t)g * kSide8;
     if (l < 22) side[l] = s8[2 * l] | (s8[2 * l + 1] << 8);
     else if (l < kSideWords) side[l] = s8[44 + l - 22];
-  } else {
-    const int16_t* s16 = static_cast<const int16_t*>(p1) + (size_t)g * kSideWords;
+  } else if (kLayout == kInt16) {
+    const int16_t* s16 = static_cast<const int16_t*>(in.p[1]) + (size_t)g * kSideWords;
     if (l < kSideWords) side[l] = s16[l];
+  } else {
+    // the side words of native/lib.py (SIDE_* / META_*), each from its
+    // field. Each thread picks its source first and loads after the branches
+    // have merged: one load instruction per warp, so a warp waits on memory
+    // once (a load in each branch would wait once per branch taken).
+    const size_t g2 = (size_t)g * 2;
+    const void* src = nullptr;  // null: a word the DSP does not read (3, 20, 21)
+    size_t i = 0;
+    if (l == 0) src = in.p[9], i = g;
+    else if (l == 2) src = in.p[12], i = g;
+    else if (l < 4) {}
+    else if (l < 6) src = in.p[3], i = g2 + l - 4;
+    else if (l < 8) src = in.p[4], i = g2 + l - 6;
+    else if (l < 10) src = in.p[5], i = g2 + l - 8;
+    else if (l < 12) src = in.p[7], i = g2 + l - 10;
+    else if (l < 14) src = in.p[8], i = g2 + l - 12;
+    else if (l < 20) src = in.p[6], i = (size_t)g * 6 + l - 14;
+    else if (l < 22) {}
+    else if (l < 66) src = in.p[1], i = (size_t)g * 44 + l - 22;
+    else if (l < kSideWords) src = in.p[2], i = (size_t)g * 78 + l - 66;
+    if (l < kSideWords && l != 1) side[l] = src ? i32_at(src, i) : 0;
+    // word 1, the flags, from a warp that loads nothing else
+    if (l == kFlagThread)
+      side[1] = flag_at(in.p[10], g) | flag_at(in.p[11], g) << 1 | flag_at(in.p[13], g) << 2;
   }
   __syncthreads();
 
@@ -114,12 +165,12 @@ requant_stereo_kernel(const void* __restrict__ p0, const void* __restrict__ p1,
 #pragma unroll
   for (int c = 0; c < 2; c++) {
     int q;
-    if (kPacked8) {
+    if (kLayout == kInt8) {
       q = l < kHead
-              ? static_cast<const int16_t*>(p1)[(size_t)g * 2 * kHead + c * kHead + l]
-              : static_cast<const int8_t*>(p0)[(size_t)g * 2 * kTail + c * kTail + l - kHead];
-    } else {
-      q = static_cast<const int16_t*>(p0)[(size_t)g * 2 * kLines + c * kLines + l];
+              ? static_cast<const int16_t*>(in.p[1])[(size_t)g * 2 * kHead + c * kHead + l]
+              : static_cast<const int8_t*>(in.p[0])[(size_t)g * 2 * kTail + c * kTail + l - kHead];
+    } else {  // int16 spectra [n][2][576], in both other layouts
+      q = static_cast<const int16_t*>(in.p[0])[(size_t)g * 2 * kLines + c * kLines + l];
     }
     const int cls = side[12 + c];
     const bool is_long = cls == 0 || (cls == 2 && l < 36);
@@ -167,20 +218,25 @@ int gomp3_requant_stereo_init(int device, const float* pretab, const float* is_l
   return (int)cudaGetLastError();
 }
 
-// packed8 != 0: p0 = tail8 i8 [n][1024], p1 = head16 i16 [n][128],
-//               p2 = side8 u8 [n][168];
-// packed8 == 0: p0 = spectra i16 [n][1152], p1 = side i16 [n][144].
-// out f32 [n][2][576], ginfo i32 [n]; n = S * T granules.
-int gomp3_requant_stereo(int device, int packed8, const void* p0, const void* p1,
-                         const void* p2, float* out, int32_t* ginfo,
-                         int n_granules, int stereo, void* stream) {
+// layout: a Layout; inputs: host array of the layout's device pointers
+// (2, 3 or 14, in the order above). out f32 [n][2][576], ginfo i32 [n];
+// n = S * T granules.
+int gomp3_requant_stereo(int device, int layout, const void* const* inputs,
+                         float* out, int32_t* ginfo, int n_granules, int stereo,
+                         void* stream) {
   cudaSetDevice(device);
+  const int count = layout == kInt16 ? 2 : layout == kInt8 ? 3 : layout == kBatch ? kMaxInputs : 0;
+  if (count == 0) return (int)cudaErrorInvalidValue;
   if (n_granules > 0) {
+    Inputs in = {};
+    for (int i = 0; i < count; i++) in.p[i] = inputs[i];
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (packed8)
-      requant_stereo_kernel<true><<<n_granules, kLines, 0, s>>>(p0, p1, p2, out, ginfo, stereo);
+    if (layout == kInt16)
+      requant_stereo_kernel<kInt16><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
+    else if (layout == kInt8)
+      requant_stereo_kernel<kInt8><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
     else
-      requant_stereo_kernel<false><<<n_granules, kLines, 0, s>>>(p0, p1, p2, out, ginfo, stereo);
+      requant_stereo_kernel<kBatch><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
   }
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,51 @@ class GranuleBatch(NamedTuple):
     mono: torch.Tensor  # bool [S, T]
 
 
+# each field's dtype and its shape past [S, T], as K1 reads them
+BATCH_FIELDS = {
+    "spectra": (torch.int16, (2, SAMPLES_PER_GR)),
+    "scalefac_l": (torch.int32, (2, 22)),
+    "scalefac_s": (torch.int32, (2, 13, 3)),
+    "global_gain": (torch.int32, (2,)),
+    "scalefac_scale": (torch.int32, (2,)),
+    "preflag": (torch.int32, (2,)),
+    "subblock_gain": (torch.int32, (2, 3)),
+    "block_type": (torch.int32, (2,)),
+    "block_class": (torch.int32, (2,)),
+    "variant": (torch.int32, ()),
+    "ms_flag": (torch.bool, ()),
+    "is_flag": (torch.bool, ()),
+    "count1_r": (torch.int32, ()),
+    "mono": (torch.bool, ()),
+}
+
+
+def granule_batch_from_numpy(fields, device) -> GranuleBatch:
+    """The 14 fields of a GranuleBatch as numpy arrays, in GranuleBatch's
+    order (e.g. a go_mp3_tpu GranuleBatch), of one stream ([T, ...]) or
+    stacked ([S, T, ...]) -> the port's GranuleBatch [S, T, ...] on
+    `device`, each field contiguous in its BATCH_FIELDS dtype."""
+    arrays = [np.asarray(a) for a in fields]
+    if len(arrays) != len(BATCH_FIELDS):
+        raise ValueError(f"{len(arrays)} fields, expected {len(BATCH_FIELDS)}")
+    single = arrays[0].ndim == 3  # spectra [T, 2, 576]
+    lead = (1, *arrays[0].shape[:1]) if single else arrays[0].shape[:2]
+    out = []
+    for a, (name, (dtype, inner)) in zip(arrays, BATCH_FIELDS.items()):
+        if single:
+            a = a[None]
+        if a.shape != (*lead, *inner):
+            raise ValueError(f"{name}: shape {a.shape}, expected {(*lead, *inner)}")
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out.append(t.to(device=device, dtype=dtype))
+    return GranuleBatch(*out)
+
+
+def batch_to(b: GranuleBatch, device) -> GranuleBatch:
+    """Every field of `b` on `device`."""
+    return GranuleBatch(*(f.to(device) for f in b))
+
+
 class DecodeState(NamedTuple):
     """Cross-chunk DSP state of S streams."""
 
@@ -487,9 +532,11 @@ def unpack_fused_mono_ref(buf: torch.Tensor, t: int, tail_lines: int):
     return _unpack_fused_rows(buf, t, tail_lines, nch=1)
 
 
-def batch_from_any(packed: tuple) -> GranuleBatch:
+def batch_from_any(packed) -> GranuleBatch:
     """(spectra2, side) -> batch_from_packed; (tail8, head16, side8) ->
-    batch_from_packed8."""
+    batch_from_packed8; a GranuleBatch as it is."""
+    if isinstance(packed, GranuleBatch):
+        return packed
     if len(packed) == 2:
         return batch_from_packed(*packed)
     return batch_from_packed8(*packed)

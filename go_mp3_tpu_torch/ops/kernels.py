@@ -7,7 +7,7 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 It allocates outputs and scratch with torch.empty and counts its launches
 in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
 
-  requant_stereo  K1  csrc/requant_stereo.cu  unpack, requantize, stereo
+  requant_stereo  K1  csrc/requant_stereo.cu  load, requantize, stereo
   hybrid          K2  csrc/hybrid.cu          antialias .. freq inversion
   synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
@@ -17,6 +17,8 @@ puts K4 in front of them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -85,35 +87,57 @@ def _route(device: torch.device) -> bool:
     raise ValueError(f"unsupported device {device}")
 
 
-def requant_stereo(packed: tuple, stereo: bool = True):
-    """K1. packed = (spectra i16 [S,T,1152], side i16 [S,T,144]) or
-    (tail8 i8 [S,T,1024], head16 i16 [S,T,128], side8 u8 [S,T,168])
+# K1's input layouts (csrc/requant_stereo.cu Layout)
+_INT16, _INT8, _BATCH = 0, 1, 2
+
+
+def requant_stereo(packed, stereo: bool = True):
+    """K1 over one of three inputs, each [S, T, ...]:
+     - the int16 interface (spectra i16 [S,T,1152], side i16 [S,T,144]);
+     - the int8 interface (tail8 i8 [S,T,1024], head16 i16 [S,T,128],
+       side8 u8 [S,T,168]);
+     - a GranuleBatch, the JAX kernel's own input, each field in its own
+       dtype (ops/granule.py BATCH_FIELDS), told apart by its type
     -> (x f32 [S, T, 2, 576], ginfo int32 [S, T]). stereo=False stops
-    after requantize, to check the two parts of K1 apart."""
-    first = packed[0]
-    dev = first.device
-    s_dim, t_dim = first.shape[:2]
-    if len(packed) == 2:
-        specs = [("spectra", torch.int16, 1152), ("side", torch.int16, SIDE_WIDTH)]
-    elif len(packed) == 3:
-        specs = [("tail8", torch.int8, SP8_TAIL_WIDTH),
-                 ("head16", torch.int16, HEAD_WIDTH),
-                 ("side8", torch.uint8, SIDE8_WIDTH)]
+    after requantize, to check the two parts of K1 apart.
+    `requant_stereo.batch_launches` counts the launches of the GranuleBatch
+    route among `requant_stereo.launches`."""
+    if isinstance(packed, G.GranuleBatch):
+        layout = _BATCH
+        dev = packed.spectra.device
+        s_dim, t_dim = packed.spectra.shape[:2]
+        for name, t in zip(packed._fields, packed):
+            dtype, inner = G.BATCH_FIELDS[name]
+            _expect(t, name, dtype, (s_dim, t_dim, *inner), dev)
     else:
-        raise ValueError(f"packed chunk has {len(packed)} arrays, expected 2 or 3")
-    for t, (name, dtype, width) in zip(packed, specs):
-        _expect(t, name, dtype, (s_dim, t_dim, width), dev)
+        if len(packed) == 2:
+            layout = _INT16
+            specs = [("spectra", torch.int16, 1152), ("side", torch.int16, SIDE_WIDTH)]
+        elif len(packed) == 3:
+            layout = _INT8
+            specs = [("tail8", torch.int8, SP8_TAIL_WIDTH),
+                     ("head16", torch.int16, HEAD_WIDTH),
+                     ("side8", torch.uint8, SIDE8_WIDTH)]
+        else:
+            raise ValueError(f"packed chunk has {len(packed)} arrays, expected "
+                             "2 or 3, or a GranuleBatch")
+        dev = packed[0].device
+        s_dim, t_dim = packed[0].shape[:2]
+        for t, (name, dtype, width) in zip(packed, specs):
+            _expect(t, name, dtype, (s_dim, t_dim, width), dev)
     if not _route(dev):
         return G.requant_stereo_ref(G.batch_from_any(packed), stereo)
     lib, idx = _library(dev)
     out = torch.empty((s_dim, t_dim, 2, 576), dtype=torch.float32, device=dev)
     ginfo = torch.empty((s_dim, t_dim), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in packed] + [None] * (3 - len(packed))
+    ptrs = (ctypes.c_void_p * len(packed))(*(t.data_ptr() for t in packed))
     _check_rc("requant_stereo", lib.gomp3_requant_stereo(
-        idx, int(len(packed) == 3), *ptrs, out.data_ptr(), ginfo.data_ptr(),
-        s_dim * t_dim, int(stereo), torch.cuda.current_stream(dev).cuda_stream,
+        idx, layout, ptrs, out.data_ptr(), ginfo.data_ptr(), s_dim * t_dim,
+        int(stereo), torch.cuda.current_stream(dev).cuda_stream,
     ))
     requant_stereo.launches += 1
+    if layout == _BATCH:
+        requant_stereo.batch_launches += 1
     return out, ginfo
 
 
@@ -205,6 +229,7 @@ KERNELS = (requant_stereo, hybrid, synth, unpack_fused)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    requant_stereo.batch_launches = 0
 
 
 reset_launch_counts()
@@ -214,12 +239,13 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def decode_chunk(packed: tuple, state: G.DecodeState, valid: torch.Tensor,
+def decode_chunk(packed, state: G.DecodeState, valid: torch.Tensor,
                  out: torch.Tensor | None = None):
-    """One [S, T] chunk of packed granules (either interface of
-    requant_stereo) plus the state -> (pcm int16 [S, T*576, 2], state
-    after each stream's valid granules). K1 -> K2 -> K3; `out`, if given,
-    receives the PCM."""
+    """One [S, T] chunk of granules (any input of requant_stereo: either
+    packed interface or a GranuleBatch) plus the state -> (pcm int16
+    [S, T*576, 2], state after each stream's valid granules). K1 -> K2 ->
+    K3; `out`, if given, receives the PCM (decode_chunk_impl and
+    decode_chunk_batch, go_mp3_tpu/ops/granule.py:493, :745, :758)."""
     x, ginfo = requant_stereo(packed)
     x18, store = hybrid(x, ginfo, state.store, valid)
     pcm, fifo = synth(x18, ginfo, state.v_fifo, valid, out=out)

@@ -1,8 +1,13 @@
-"""Multi-stream corpus decoding on one device: the throughput entry point.
+"""Multi-stream corpus decoding on one device.
 
-Counterpart of decode_corpus_fast in go_mp3_tpu/parallel/corpus.py, with
-the JAX function's options and defaults (mesh aside). The C++ parser fills
-[S, T] chunks of every stream into host arrays; the chunks reach the card
+decode_corpus_fast, the throughput entry point, is the counterpart of
+go_mp3_tpu/parallel/corpus.py's, with the JAX function's options and
+defaults (mesh aside). decode_corpus, its "auditability path", decodes
+streams pre-parsed by the pure-Python parser (parse_stream_granules), as
+GranuleBatches through K1's GranuleBatch route, one chunk at a time.
+
+In decode_corpus_fast the C++ parser fills [S, T] chunks of every stream
+into host arrays; the chunks reach the card
 in pinned, double-buffered host buffers and are decoded with the
 per-stream state carried on the card, on one CUDA stream, while the host
 parses the next chunk or segment.
@@ -24,6 +29,7 @@ on the same device).
 
 from __future__ import annotations
 
+import io
 import itertools
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -33,17 +39,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from go_mp3_tpu.bitstream import Source, read_header
+from go_mp3_tpu.bitstream.frameheader import Mode
+from go_mp3_tpu.bitstream.parser import FrameReader
 from go_mp3_tpu.consts import (
     HEAD_WIDTH,
     SAMPLES_PER_GR,
     SIDE8_WIDTH,
     SIDE_WIDTH,
     SP8_TAIL_WIDTH,
+    EOFError_,
+    SyncSearchLimitError,
+    UnexpectedEOFError,
 )
 from go_mp3_tpu.native.lib import BatchParser, NativeParser
 
 from ..device import resolve_device
-from ..ops.granule import init_state
+from ..models.pipeline import GranuleMeta, granules_from_frame, pack_granule_batch
+from ..ops.granule import GranuleBatch, batch_to, init_state
 from ..ops.kernels import decode_chunk
 from ..ops.wire import (
     TAIL_LINES_FULL,
@@ -65,12 +78,30 @@ __all__ = [
     "build_fused_chunk_mono",
     "bucket_tail_lines",
     "chunk_all_mono",
+    "decode_corpus",
     "decode_corpus_fast",
+    "parse_stream_granules",
     "tail_cap_lines",
     "tail_need_lines",
 ]
 
 _PHASES = ("parse", "pack", "h2d", "kernels", "d2h", "emit")
+
+
+def parse_stream_granules(data: bytes, limit: int | None = None) -> list[GranuleMeta]:
+    """Parse a whole MP3 byte stream into granule records with the
+    pure-Python parser (at least `limit` granules, where given, or all)."""
+    src = Source(io.BytesIO(data))
+    src.skip_tags()
+    fr = FrameReader()
+    out: list[GranuleMeta] = []
+    while limit is None or len(out) < limit:
+        try:
+            f = fr.read(src, src.pos)
+        except (EOFError_, UnexpectedEOFError, SyncSearchLimitError):
+            break
+        out.extend(granules_from_frame(f))
+    return out
 
 
 @dataclass
@@ -132,6 +163,66 @@ class _Timer:
         for phase, a, b in self.events:
             out[phase] += a.elapsed_time(b) / 1e3
         return out
+
+
+def decode_corpus(
+    streams: list[list[GranuleMeta]],
+    chunk_t: int = 128,
+    decode_fn=None,
+    device=None,
+) -> CorpusResult:
+    """Decode pre-parsed streams in lockstep [S, chunk_t] chunks.
+
+    Each chunk is staged on the host as one GranuleBatch (a stream that
+    has ended contributes zero rows and valid 0, which keeps its state),
+    copied to `device` and decoded by decode_fn(batch, states, valid) ->
+    (pcm int16 [S, chunk_t*576, 2], states), by default
+    kernels.decode_chunk: K1 on its GranuleBatch route -> K2 -> K3.
+    phase_seconds has "pack" and "emit" on the host clock and "h2d",
+    "kernels", "d2h" as CUDA event time ("parse" is the caller's).
+
+    device: None means CUDA (raises where CUDA is unavailable); "cpu" runs
+    the plain PyTorch chain."""
+    device = resolve_device(device)
+    if decode_fn is None:
+        decode_fn = decode_chunk
+    n_streams = len(streams)
+    timer = _Timer(device)
+    states = init_state(n_streams, device)
+    parts: list[list[bytes]] = [[] for _ in range(n_streams)]
+    max_len = max((len(s) for s in streams), default=0)
+    total = sum(len(s) for s in streams)
+
+    for start in range(0, max_len, chunk_t):
+        t0 = time.perf_counter()
+        packed = [pack_granule_batch(s[start : start + chunk_t], pad_to=chunk_t)
+                  for s in streams]
+        stacked = GranuleBatch(*(torch.cat(f) for f in zip(*(b for b, _ in packed))))
+        valids = [v for _, v in packed]
+        timer.add("pack", t0, time.perf_counter())
+        e0 = timer.mark()
+        batch = batch_to(stacked, device)
+        valid = torch.tensor(valids, dtype=torch.int32, device=device)
+        e1 = timer.mark()
+        pcm, states = decode_fn(batch, states, valid)
+        e2 = timer.mark()
+        host = pcm.cpu().numpy()
+        e3 = timer.mark()
+        timer.add("h2d", e0, e1)
+        timer.add("kernels", e1, e2)
+        timer.add("d2h", e2, e3)
+        t0 = time.perf_counter()
+        for i, v in enumerate(valids):
+            if v:
+                parts[i].append(host[i, : v * SAMPLES_PER_GR].tobytes())
+        timer.add("emit", t0, time.perf_counter())
+
+    return CorpusResult(
+        pcm=[b"".join(p) for p in parts],
+        granules=total,
+        samples=total * SAMPLES_PER_GR,
+        phase_seconds=timer.seconds(),
+    )
 
 
 class _MonoSplitMismatch(Exception):
@@ -343,11 +434,6 @@ class _Group(NamedTuple):
 
 def _mono_first_frame(data: bytes) -> bool:
     """go_mp3_tpu/parallel/corpus.py:382-394: is the first frame mono?"""
-    import io
-
-    from go_mp3_tpu.bitstream import Source, read_header
-    from go_mp3_tpu.bitstream.frameheader import Mode
-
     try:
         src = Source(io.BytesIO(data))
         src.skip_tags()

@@ -20,6 +20,10 @@ MODULES = [
     "go_mp3_tpu_torch",
     "go_mp3_tpu_torch.decoder",
     "go_mp3_tpu_torch.device",
+    "go_mp3_tpu_torch.gapless",
+    "go_mp3_tpu_torch.models",
+    "go_mp3_tpu_torch.models.native_pipeline",
+    "go_mp3_tpu_torch.models.pipeline",
     "go_mp3_tpu_torch.ops",
     "go_mp3_tpu_torch.ops._build",
     "go_mp3_tpu_torch.ops.granule",
@@ -54,7 +58,8 @@ def test_every_module_imports_without_jax():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
-        "assert 'go_mp3_tpu.ops' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.startswith(\n"
+        "    ('go_mp3_tpu.ops', 'go_mp3_tpu.models', 'go_mp3_tpu.parallel'))]\n"
         "print('ok')\n"
     )
     proc = _run(code)
@@ -79,7 +84,8 @@ def test_kernels_import_without_nvcc_or_triton(tmp_path):
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
-@pytest.mark.parametrize("name", ["requant_stereo", "hybrid", "synth", "unpack_fused"])
+@pytest.mark.parametrize(
+    "name", ["requant_stereo", "requant_stereo_batch", "hybrid", "synth", "unpack_fused"])
 def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     """A wrapper given CPU tensors returns the plain version's result and
     counts no launch; the kernel library is never loaded."""
@@ -91,21 +97,25 @@ def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     packed = tuple(map(torch.from_numpy, syn.random_chunk(6, 2, 20, valid)))
     v = torch.tensor(valid, dtype=torch.int32)
     state = P.init_state(2, "cpu")
+    batch = P.GranuleBatch(*(f.contiguous() for f in P.batch_from_packed(*packed)))
     x, ginfo = P.requant_stereo_ref(P.batch_from_packed(*packed))
     x18, _ = P.hybrid_ref(x, ginfo, state.store, v)
     buf = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (2, wire.fused_stream_nbytes(20, 301)), dtype=np.uint8))
     args = {
         "requant_stereo": ((packed,), (x, ginfo)),
+        "requant_stereo_batch": ((batch,), (x, ginfo)),
         "hybrid": ((x, ginfo, state.store, v), P.hybrid_ref(x, ginfo, state.store, v)),
         "synth": ((x18, ginfo, state.v_fifo, v), P.synth_ref(x18, ginfo, state.v_fifo, v)),
         "unpack_fused": ((buf, 20, 301), P.unpack_fused_ref(buf, 20, 301)),
     }[name]
     kernels.reset_launch_counts()
-    got = getattr(kernels, name)(*args[0])
+    wrapper = name.removesuffix("_batch")
+    got = getattr(kernels, wrapper)(*args[0])
     for a, b in zip(got, args[1]):
         assert torch.equal(a, b)
-    assert kernels.launch_counts()[name] == 0
+    assert kernels.launch_counts()[wrapper] == 0
+    assert kernels.requant_stereo.batch_launches == 0
 
 
 def test_wrapper_rejects_bad_input():
