@@ -47,10 +47,25 @@ first that fails:
     and decoded in chunks of 128 through K1's GranuleBatch route;
     byte-identical to decode_corpus_fast(fused=False) on the same cut
     lanes, every lane ISO full against the exact backend;
- 6. the last line: {"ok": true, "device": {...}}.
+ 6. the stream mesh (parallel/mesh.py), over every visible card and over
+    two entries of cuda:0 (a one-card machine's only split): the sharded
+    decoders on the phase-2 batch bit-identical to decode_chunk;
+    decode_corpus_fast(mesh=...) with the defaults, the bench settings and
+    fetch=False byte-identical to phase 5; decode_corpus with a sharded
+    decode_fn byte-identical to phase 5b; torch.cuda.current_device()
+    unchanged after every run; walls, lanes per entry, phase split, graph
+    replays and launches printed;
+ 7. the conformance bundle on the card (python -m
+    go_mp3_tpu_torch.conformance --device cuda, in this process): exact,
+    golden and the card's PCM pairwise ISO full on the bundle's files, the
+    corpus settings unsharded and on a two-entry mesh byte-identical to
+    the per-stream decodes;
+ 8. the last line: {"ok": true, "device": {...}}.
 
-Each phase of the main path (4 to 5b) starts with the launch counts at 0
-and checks that K1-K3 (and, in 4b and 5b, K1's GranuleBatch route) ran.
+Each phase of the main path (4 to 7) starts each run with the launch
+counts at 0 and checks that K1-K3 (and, in 4b and 5b, K1's GranuleBatch
+route; on the fused corpus path K4 and, with drain, the graph) ran; the
+JSON line sums the launches over them.
 The line before the last is a JSON object with one entry per kernel. The
 script imports torch, the port (go_mp3_tpu_torch, whose `reference` module
 gives the exact C++ backend and the ISO measure) and the seeded-granule
@@ -561,32 +576,67 @@ def _check_chain(counts: dict, what: str, batch_route: bool) -> None:
           f"{counts['requant_stereo']} times")
 
 
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class _Launches:
+    """Runs a main-path call with the launch counts (and the peak device
+    memory) at 0 just before it, reads them just after, checks that
+    torch's current device did not move and adds the counts to `totals`.
+    Every main-path run of phases 4-7 goes through run()."""
+
+    def __init__(self):
+        import torch
+
+        self.home = torch.cuda.current_device()
+        self.totals: dict = {}
+
+    def run(self, what: str, fn):
+        """-> (fn(), wall seconds, the run's launch counts)."""
+        import torch
+
+        from go_mp3_tpu_torch.ops import kernels as K
+        from go_mp3_tpu_torch.parallel.segment import SegmentGraph
+
+        _sync_all()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        SegmentGraph.replays = 0
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_all()
+        wall = time.perf_counter() - t0
+        counts = {**_counts(), "segment_graph": SegmentGraph.replays}
+        check(torch.cuda.current_device() == self.home,
+              f"{what}: torch's current device moved from {self.home} to "
+              f"{torch.cuda.current_device()}")
+        for name, n in counts.items():
+            self.totals[name] = self.totals.get(name, 0) + n
+        return out, wall, counts
+
+
 def phase_decoder_paths(dev, data: bytes, native_pcm: bytes, exact: bytes) -> dict:
     """The Decoder's pure-Python parse path, its streaming source and a
     GaplessDecoder on phase 4's stream. -> launches summed over the three."""
-    import torch
-
     from go_mp3_tpu_torch import Decoder, GaplessDecoder, NotSeekableError, lameinfo
-    from go_mp3_tpu_torch.ops import kernels as K
 
-    totals: dict = {}
-    runs = (
+    runs = _Launches()
+    paths = (
         ("use_native=False", lambda: Decoder(data, use_native=False, device=dev), True),
         ("non-seekable source", lambda: Decoder(_NonSeekable(data), device=dev), False),
         ("GaplessDecoder", lambda: GaplessDecoder(data, device=dev), False),
     )
-    for label, make, batch_route in runs:
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        d = make()
-        pcm = d.read_all()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _counts()
+    for label, make, batch_route in paths:
+        def read(make=make):
+            d = make()
+            return d, d.read_all()
+
+        (d, pcm), wall, counts = runs.run(f"phase 4b {label}", read)
         _check_chain(counts, f"phase 4b {label}", batch_route)
-        for name, n in counts.items():
-            totals[name] = totals.get(name, 0) + n
         secs = len(pcm) / 4 / d.sample_rate()
         if label == "GaplessDecoder":
             # no LAME tag on this stream: the decoder delay alone is cut
@@ -607,7 +657,7 @@ def phase_decoder_paths(dev, data: bytes, native_pcm: bytes, exact: bytes) -> di
             detail += "; length() -1, seek raises NotSeekableError"
         say(f"phase 4b Decoder [{label}]: {secs:.2f} s of audio in {wall:.3f} "
             f"s ({secs / wall:.1f}x realtime) {detail}; launches {counts}")
-    return totals
+    return runs.totals
 
 
 def corpus_lanes(n_escape: int = N_STEREO, n_lowrate: int = N_MONO,
@@ -669,24 +719,14 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
     import torch
 
     from go_mp3_tpu_torch import decode_corpus_fast
-    from go_mp3_tpu_torch.ops import kernels as K
-    from go_mp3_tpu_torch.parallel.segment import SegmentGraph
     from go_mp3_tpu_torch.reference import decode_exact, index_stream
 
-    runs, totals = [], {}
+    launches, runs = _Launches(), []
     for label, kw in CORPUS_RUNS:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        SegmentGraph.replays = 0
-        t0 = time.perf_counter()
-        res = decode_corpus_fast(lanes, device=dev, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        res, wall, counts = launches.run(
+            f"phase 5 corpus {label}",
+            lambda kw=kw: decode_corpus_fast(lanes, device=dev, **kw))
         peak = torch.cuda.max_memory_allocated() / 2**20
-        counts = {**K.launch_counts(), "segment_graph": SegmentGraph.replays}
-        for name, n in counts.items():
-            totals[name] = totals.get(name, 0) + n
         if isinstance(res, tuple):  # fetch=False: PCM on the card
             shape = tuple(res[0].shape)
             res, pcm = res.stats, _lanes_from_device(*res)
@@ -736,17 +776,14 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
               f"corpus [{label}]: K4 ran {counts['unpack_fused']} times")
         check((counts["segment_graph"] > 0) == ("drain" in kw),
               f"corpus [{label}]: {counts['segment_graph']} graph replays")
-    return totals
+    return launches.totals, base
 
 
-def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768) -> dict:
+def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768):
     """decode_corpus over `lanes` cut to their first `depth` granules,
     against decode_corpus_fast(fused=False) on the same cut lanes and the
-    exact backend. -> its launches."""
-    import torch
-
+    exact backend. -> (its launches, the parsed streams, its PCM)."""
     from go_mp3_tpu_torch import decode_corpus_fast
-    from go_mp3_tpu_torch.ops import kernels as K
     from go_mp3_tpu_torch.parallel import decode_corpus, parse_stream_granules
     from go_mp3_tpu_torch.reference import decode_exact, index_stream
 
@@ -763,13 +800,9 @@ def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768) -> dict:
     check(all(len(s) == depth for s in streams),
           f"phase 5b: lanes parsed to {sorted({len(s) for s in streams})} granules")
 
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = decode_corpus(streams, chunk_t=128, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()
+    runs = _Launches()
+    res, wall, counts = runs.run("phase 5b decode_corpus", lambda: decode_corpus(
+        streams, chunk_t=128, device=dev))
     _check_chain(counts, "phase 5b decode_corpus", True)
 
     fast = decode_corpus_fast(cut, chunk_t=128, fused=False, device=dev)
@@ -793,7 +826,144 @@ def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768) -> dict:
         f"{audio / (parse_s + wall):.1f}x with the parse; byte-identical to "
         f"decode_corpus_fast(fused=False); every lane ISO full vs exact "
         f"(worst RMS {worst[0]:.4f}, max {worst[1]}); launches {counts}")
-    return counts
+    return runs.totals, streams, res.pcm
+
+
+MESH_RUNS = (  # (label, decode_corpus_fast keywords) per mesh
+    ("defaults", {}),
+    ("bench settings", BENCH_SETTINGS),
+    ("fetch=False", {"fetch": False}),
+)
+
+
+def phase_mesh(dev, lanes: list[bytes], corpus_pcm: list[bytes],
+               py_streams, py_pcm) -> dict:
+    """The stream mesh over every card (make_mesh()) and over two entries
+    of `dev`: decode_corpus_fast with MESH_RUNS, byte-identical to phase
+    5's PCM; make_sharded_decoder and make_sharded_packed_decoder on the
+    phase-2 batch, two chunks with the state carried, bit-identical to
+    decode_chunk; decode_corpus(decode_fn=make_sharded_decoder(...)) on
+    phase 5b's parsed lanes, byte-identical to phase 5b. Every run starts
+    with the launch counts at 0 and checks that the current device did
+    not move. -> launches summed over the runs."""
+    import torch
+
+    from go_mp3_tpu_torch import decode_corpus_fast
+    from go_mp3_tpu_torch.ops import granule as G
+    from go_mp3_tpu_torch.ops.kernels import decode_chunk
+    from go_mp3_tpu_torch.parallel import decode_corpus, make_mesh
+    from go_mp3_tpu_torch.parallel.mesh import (
+        make_sharded_decoder,
+        make_sharded_packed_decoder,
+    )
+    from go_mp3_tpu_torch.reference import index_stream
+
+    runs = _Launches()
+    pair = make_mesh([dev, dev])
+    meshes = (("make_mesh()", make_mesh()),
+              (f"[{', '.join(map(str, pair.devices))}]", pair))
+    audio = sum(len(p) / 4 / index_stream(d)[2] for p, d in zip(corpus_pcm, lanes))
+    kernel_chain = ("requant_stereo", "hybrid", "synth")
+
+    # the sharded decoders on the phase-2 batch, inputs from the host
+    p16, _, valid, state, _ = smoke_batch(S_SMOKE, T_SMOKE, dev)
+    batch = G.GranuleBatch(*(f.contiguous() for f in G.batch_from_packed(*p16)))
+
+    def two_chunks(decode, inputs):
+        st, out = state, []
+        for _ in range(2):
+            pcm, st = decode(*inputs, st, valid)
+            out.append(pcm.cpu())
+        return out, st.cpu() if hasattr(st, "cpu") else st
+
+    def chunk_ref(*args):  # decode_chunk, called as the sharded decoders are
+        *arrays, st, v = args
+        return decode_chunk(arrays[0] if len(arrays) == 1 else tuple(arrays), st, v)
+
+    routes = (  # (name, maker, the inputs on the card)
+        ("make_sharded_decoder", make_sharded_decoder, (batch,)),
+        ("make_sharded_packed_decoder", make_sharded_packed_decoder, p16),
+    )
+    refs = [two_chunks(chunk_ref, inputs) for _, _, inputs in routes]
+    for label, mesh in meshes:
+        for (name, make, inputs), (ref, ref_state) in zip(routes, refs):
+            host = (G.GranuleBatch(*(f.cpu() for f in inputs[0])),) \
+                if name == "make_sharded_decoder" else tuple(a.cpu() for a in inputs)
+            (out, st), wall, counts = runs.run(
+                f"phase 6 {name} {label}", lambda: two_chunks(make(mesh), host))
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  f"phase 6 {name} on {label}: PCM differs from decode_chunk")
+            check(torch.equal(st.store, ref_state.store.cpu())
+                  and torch.equal(st.v_fifo, ref_state.v_fifo.cpu()),
+                  f"phase 6 {name} on {label}: state differs from decode_chunk")
+            check(all(counts[n] > 0 for n in kernel_chain), f"phase 6 {name}: {counts}")
+            say(f"phase 6 {name} on {label}: 2 chunks of [{S_SMOKE}, {T_SMOKE}] "
+                f"with the state carried in {wall:.4f} s (host inputs, PCM "
+                f"gathered on the host); PCM and state bit-identical to "
+                f"decode_chunk; launches {counts}")
+
+    # decode_corpus_fast on the mesh
+    for label, mesh in meshes:
+        split = [(str(d), hi - lo) for d, lo, hi in mesh.blocks(len(lanes))]
+        for run_label, kw in MESH_RUNS:
+            res, wall, counts = runs.run(
+                f"phase 6 corpus {run_label} on {label}",
+                lambda kw=kw: decode_corpus_fast(lanes, mesh=mesh, **kw))
+            if isinstance(res, tuple):  # fetch=False: PCM left on the cards
+                blocks = [tuple(p.shape) for p in res[0]]
+                pcm = _lanes_from_device(torch.cat([p.cpu() for p in res[0]], 1),
+                                         res[1])
+                res = res.stats
+                run_label += f" (PCM left on the cards as {blocks} int16)"
+            else:
+                pcm = res.pcm
+            check(pcm == corpus_pcm,
+                  f"phase 6 corpus {run_label} on {label}: PCM differs from phase 5")
+            check(all(counts[n] > 0 for n in (*kernel_chain, "unpack_fused")),
+                  f"phase 6 corpus {run_label} on {label}: a kernel never ran ({counts})")
+            check((counts["segment_graph"] > 0) == ("drain" in kw),
+                  f"phase 6 corpus {run_label}: {counts['segment_graph']} graph replays")
+            ph = res.phase_seconds
+            say(f"phase 6 corpus [{run_label}] on {label}, lanes per entry "
+                f"{split}: wall {wall:.3f} s -> {audio / wall:.1f}x realtime; "
+                f"host: parse {ph['parse']:.3f} s, pack {ph['pack']:.3f} s, emit "
+                f"{ph['emit']:.3f} s; card, summed over the entries: h2d "
+                f"{ph['h2d']:.4f} s, kernels {ph['kernels']:.4f} s, d2h "
+                f"{ph['d2h']:.4f} s; graph replays {res.graph_replays}, captures "
+                f"{res.graph_capture_seconds:.3f} s; byte-identical to phase 5; "
+                f"launches {counts}")
+
+    # decode_corpus with a sharded decode_fn
+    for label, mesh in meshes:
+        res, wall, counts = runs.run(
+            f"phase 6 decode_corpus on {label}",
+            lambda: decode_corpus(py_streams, chunk_t=128,
+                                  decode_fn=make_sharded_decoder(mesh)))
+        check(res.pcm == py_pcm, f"phase 6 decode_corpus on {label}: PCM differs "
+              "from phase 5b")
+        _check_chain(counts, f"phase 6 decode_corpus on {label}", True)
+        say(f"phase 6 decode_corpus(decode_fn=make_sharded_decoder) on {label}: "
+            f"{res.granules} granules, wall {wall:.3f} s; byte-identical to "
+            f"phase 5b; launches {counts}")
+    say(f"phase 6 mesh: torch.cuda.current_device() stayed {runs.home} through "
+        f"every run ({torch.cuda.device_count()} visible card(s))")
+    return runs.totals
+
+
+def phase_conformance() -> dict:
+    """python -m go_mp3_tpu_torch.conformance --device cuda, in this
+    process. -> its launches."""
+    from go_mp3_tpu_torch import conformance
+
+    runs = _Launches()
+    rc, wall, counts = runs.run("phase 7 conformance",
+                                lambda: conformance.main(["--device", "cuda"]))
+    check(rc == 0, f"phase 7: the conformance bundle failed (exit {rc})")
+    check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth",
+                                       "unpack_fused", "segment_graph")),
+          f"phase 7: a kernel never ran ({counts})")
+    say(f"phase 7 conformance on cuda: passed in {wall:.3f} s; launches {counts}")
+    return runs.totals
 
 
 def main() -> int:
@@ -811,7 +981,6 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
     from go_mp3_tpu_torch.device import resolve_device
-    from go_mp3_tpu_torch.ops import kernels as K
 
     dev = resolve_device(None)
     phase_device()
@@ -820,16 +989,19 @@ def main() -> int:
     phase_chunk_invariance(dev, S_SMOKE, T_SMOKE)
     rows["segment_graph"] = phase_graph(dev, T_SMOKE)
 
-    K.reset_launch_counts()  # the main path's runs start here
-    data, native_pcm, exact = phase_decoder(dev)
-    decoder = _counts()
+    runs = _Launches()  # the main path's runs start here
+    (data, native_pcm, exact), _, decoder = runs.run("phase 4 Decoder",
+                                                     lambda: phase_decoder(dev))
     say(f"launches: Decoder {decoder}")
     _check_chain(decoder, "phase 4 Decoder", False)
     lanes = corpus_lanes()
-    counts = dict(decoder)
+    counts = dict(runs.totals)
+    corpus_totals, corpus_pcm = phase_corpus(dev, lanes)
+    py_totals, py_streams, py_pcm = phase_decode_corpus(dev, lanes)
     for part in (phase_decoder_paths(dev, data, native_pcm, exact),
-                 phase_corpus(dev, lanes),
-                 phase_decode_corpus(dev, lanes)):
+                 corpus_totals, py_totals,
+                 phase_mesh(dev, lanes, corpus_pcm, py_streams, py_pcm),
+                 phase_conformance()):
         for name, n in part.items():
             counts[name] = counts.get(name, 0) + n
     check(not any(m == "jax" or m.startswith(

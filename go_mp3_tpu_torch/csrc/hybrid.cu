@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 __constant__ float c_cs[8];
@@ -122,7 +124,8 @@ extern "C" {
 // cs/ca f32[8], cos36 f32[18][36], m3 f32[18][36], win f32[4][36].
 int gomp3_hybrid_init(int device, const float* cs, const float* ca,
                       const float* cos36, const float* m3, const float* win) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaMemcpyToSymbol(c_cs, cs, sizeof(float) * 8);
   cudaMemcpyToSymbol(c_ca, ca, sizeof(float) * 8);
   cudaMemcpyToSymbol(c_cos36, cos36, sizeof(float) * 18 * 36);
@@ -136,7 +139,8 @@ int gomp3_hybrid_init(int device, const float* cs, const float* ca,
 int gomp3_hybrid(int device, const float* x, const int32_t* ginfo,
                  const float* store_in, const int32_t* valid, float* x18,
                  float* store_out, int S, int T, void* stream) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (S > 0 && T > 0)
     hybrid_kernel<<<S * 2, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         x, ginfo, store_in, valid, x18, store_out, T);

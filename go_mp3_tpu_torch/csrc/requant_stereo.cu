@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kLines = 576;
@@ -206,7 +208,8 @@ int gomp3_requant_stereo_init(int device, const float* pretab, const float* is_l
                               const float* is_r, const int32_t* long_start,
                               const int32_t* short_start3, const uint8_t* long_sfb,
                               const uint8_t* req_short, const uint8_t* is_short) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaMemcpyToSymbol(c_pretab, pretab, sizeof(float) * 22);
   cudaMemcpyToSymbol(c_is_l, is_l, sizeof(float) * 7);
   cudaMemcpyToSymbol(c_is_r, is_r, sizeof(float) * 7);
@@ -224,7 +227,8 @@ int gomp3_requant_stereo_init(int device, const float* pretab, const float* is_l
 int gomp3_requant_stereo(int device, int layout, const void* const* inputs,
                          float* out, int32_t* ginfo, int n_granules, int stereo,
                          void* stream) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const int count = layout == kInt16 ? 2 : layout == kInt8 ? 3 : layout == kBatch ? kMaxInputs : 0;
   if (count == 0) return (int)cudaErrorInvalidValue;
   if (n_granules > 0) {

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 __constant__ float c_nwin[64][32];  // SYNTH_N_WIN
@@ -122,7 +124,8 @@ extern "C" {
 
 // nwin f32[64][32], dtbl f32[512].
 int gomp3_synth_init(int device, const float* nwin, const float* dtbl) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaMemcpyToSymbol(c_nwin, nwin, sizeof(float) * 64 * 32);
   cudaMemcpyToSymbol(c_dtbl, dtbl, sizeof(float) * 512);
   return (int)cudaGetLastError();
@@ -134,7 +137,8 @@ int gomp3_synth_init(int device, const float* nwin, const float* dtbl) {
 int gomp3_synth(int device, const float* x18, const int32_t* ginfo,
                 const float* fifo_in, const int32_t* valid, float* vs,
                 int16_t* pcm, float* fifo_out, int S, int T, void* stream) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (S > 0 && T > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     matrix_kernel<<<S * T, kMatThreads, 0, st>>>(x18, vs, T);

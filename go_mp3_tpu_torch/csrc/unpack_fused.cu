@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kTail = 512;   // per-channel tail lines
@@ -96,7 +98,8 @@ extern "C" {
 int gomp3_unpack_fused(int device, const uint8_t* buf, int8_t* tail8,
                        int16_t* head16, uint8_t* side8, int S, int T, int L,
                        int nch, void* stream) {
-  cudaSetDevice(device);
+  gomp3::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   if (S <= 0 || T <= 0) return (int)cudaGetLastError();
   if (L < 0 || L > kTail || (nch != 1 && nch != 2) || 2 * S > 65535)
     return (int)cudaErrorInvalidValue;

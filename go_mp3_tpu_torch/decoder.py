@@ -17,9 +17,9 @@ The device paths run ops.kernels.decode_chunk (K1 -> K2 -> K3 on CUDA, the
 plain chain on the CPU) with the DSP state kept on `device`. read, seek,
 length and the rest are inherited.
 
-backend="golden" raises MP3Error: its numpy oracle
-(go_mp3_tpu/ops/reference_dsp.py) can only be imported through
-go_mp3_tpu.ops, whose __init__ imports JAX.
+backend="golden" is go_mp3_tpu's numpy float64 oracle
+(go_mp3_tpu/ops/reference_dsp.py, loaded without JAX by golden.py) on the
+pure-Python parse path, as in go_mp3_tpu; like "exact", it needs no device.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from go_mp3_tpu.decoder import NotSeekableError
 from go_mp3_tpu.native import lib as native
 
 from .device import resolve_device
+from .golden import golden_decoder_class
 from .models.pipeline import StreamDecoder
 from .ops.granule import init_state, state_from_numpy, state_to_numpy
 from .ops.kernels import decode_chunk
@@ -137,10 +138,22 @@ class _DeviceBackend:
         return self._sd.decode_pending(flush=True)
 
 
+class _GoldenBackend(_base._GoldenBackend):
+    """go_mp3_tpu/decoder.py:724-739 with the oracle loaded without JAX;
+    decode_frames is the base class's. `_gd` is the GoldenDecoder, which
+    the base checkpoint and resume read and write."""
+
+    def __init__(self) -> None:
+        self._gd = golden_decoder_class()()
+
+    def reset(self) -> None:
+        self._gd = golden_decoder_class()()
+
+
 class Decoder(_base.Decoder):
     """A decoded MP3 stream whose DSP runs on `device` (None means CUDA,
     and raises where there is none; "cpu" runs the plain chain). `device`
-    is not used by backend="exact"."""
+    is not used by backend="exact" or backend="golden"."""
 
     def __init__(
         self,
@@ -153,19 +166,13 @@ class Decoder(_base.Decoder):
     ):
         # go_mp3_tpu/decoder.py:57-117; the base __init__ cannot be called,
         # since it builds JAX backends
-        if backend == "golden":
-            raise MP3Error(
-                "mp3: the golden backend is not in go_mp3_tpu_torch: its "
-                "numpy oracle is reached only through go_mp3_tpu.ops, which "
-                "imports JAX"
-            )
-        if backend not in ("device", "exact"):
+        if backend not in ("device", "exact", "golden"):
             raise MP3Error(f"mp3: unknown DSP backend {backend!r}")
         self._device = resolve_device(device) if backend == "device" else None
         if isinstance(reader, (bytes, bytearray)):
             reader = io.BytesIO(reader)
         self._native = None
-        if use_native is not False:
+        if use_native is not False and backend != "golden":
             if backend == "device":
                 self._native = _maybe_native_stream(reader, self._device)
             else:  # go_mp3_tpu's exact streams are JAX-free
@@ -176,7 +183,9 @@ class Decoder(_base.Decoder):
         self._frame_reader = FrameReader()
         self._backend_name = backend
         self._readahead = max(1, readahead_frames)
-        if self._native is None and backend == "device":
+        if backend == "golden":  # always the pure-Python parse, as in JAX's
+            self._dsp = _GoldenBackend()
+        elif self._native is None and backend == "device":
             self._dsp = _DeviceBackend(self._device)
         else:  # the native streams decode; nothing to build here
             self._dsp = _base._NullBackend()

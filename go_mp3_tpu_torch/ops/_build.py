@@ -51,8 +51,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """Keyed by the flags and every source and header in csrc/."""
     h = hashlib.sha256(" ".join(_FLAGS + _LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_sources() + list(_CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_ROOT / h.hexdigest()[:16] / _LIB_NAME

@@ -2,7 +2,10 @@
 
 Each wrapper checks device, dtype, shape and contiguity, then:
  - on CPU tensors, runs the kernel's plain PyTorch version (ops/granule.py);
- - on CUDA tensors, launches the kernel on the current stream, or raises.
+ - on CUDA tensors, launches the kernel on the current stream of the
+   tensors' device, or raises; torch's current device is the same after the
+   call as before it (each C entry point makes the tensors' device current
+   and restores the caller's: csrc/device_guard.cuh).
    There is no fallback from a CUDA tensor to the plain version.
 It allocates outputs and scratch with torch.empty and counts its launches
 in `<wrapper>.launches`, a plain integer that only a kernel launch moves.

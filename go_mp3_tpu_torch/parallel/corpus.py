@@ -1,10 +1,11 @@
-"""Multi-stream corpus decoding on one device.
+"""Multi-stream corpus decoding, on one device or split over a mesh.
 
 decode_corpus_fast, the throughput entry point, is the counterpart of
-go_mp3_tpu/parallel/corpus.py's, with the JAX function's options and
-defaults (mesh aside). decode_corpus, its "auditability path", decodes
-streams pre-parsed by the pure-Python parser (parse_stream_granules), as
-GranuleBatches through K1's GranuleBatch route, one chunk at a time.
+go_mp3_tpu/parallel/corpus.py's, with the JAX function's parameters in
+its order and with its defaults, then a keyword-only `device`.
+decode_corpus, its "auditability path", decodes streams pre-parsed by the
+pure-Python parser (parse_stream_granules), as GranuleBatches through K1's
+GranuleBatch route, one chunk at a time.
 
 In decode_corpus_fast the C++ parser fills [S, T] chunks of every stream
 into host arrays; the chunks reach the card
@@ -25,6 +26,12 @@ fused=True (the default) is the production path:
 fused=False is the three-array int8 interface; both paths drop to the int16
 interface when a stream's tail spectra overflow int8 (an input-range path,
 on the same device).
+
+mesh (parallel/mesh.py): shard, then split. Mesh entry d owns the
+caller's contiguous lane block d and runs the one-device pipeline above on
+its own device (its own lane groups, widths, states and SegmentGraphs);
+the host parse is shared, and each entry's rows go from the pinned host
+buffers straight to its device. No lane crosses a device.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from ..ops.wire import (
     tail_cap_lines,
     tail_need_lines,
 )
+from .mesh import Mesh
 from .segment import SegmentGraph, run_segment_eager, static_slots
 
 # public here as in go_mp3_tpu.parallel.corpus
@@ -112,12 +120,13 @@ class CorpusResult:
     # seconds by phase: "parse", "pack" (fused wire rows built from the
     # parsed arrays, tail extents scanned) and "emit" (PCM rows copied out
     # of the pinned buffers and joined per stream) on the host clock;
-    # "h2d", "kernels", "d2h" as CUDA event time on the card's stream (host
-    # clock on the CPU)
+    # "h2d", "kernels", "d2h" as CUDA event time on each device's stream
+    # (host clock on the CPU), summed over the mesh entries
     phase_seconds: dict = field(default_factory=dict)
-    # each chunk's shipped tail width per lane group (fused path; stereo
-    # group first), the input bytes copied to the device, and this run's
-    # SegmentGraph replays and captures (host seconds, warm-up included)
+    # each chunk's shipped tail width per lane group (fused path; per mesh
+    # entry, its stereo group first), the input bytes copied to the
+    # devices, and this run's SegmentGraph replays and captures (host
+    # seconds, warm-up included)
     chunk_widths: list = field(default_factory=list)
     wire_bytes: int = 0
     graph_replays: int = 0
@@ -129,31 +138,30 @@ class DeviceCorpus(tuple):
     go_mp3_tpu's; `stats` is the run's CorpusResult without PCM (phase
     split, widths, wire bytes)."""
 
-    def __new__(cls, pcm: torch.Tensor, valids: np.ndarray, stats: CorpusResult):
+    def __new__(cls, pcm, valids: np.ndarray, stats: CorpusResult):
         self = super().__new__(cls, (pcm, valids))
         self.stats = stats
         return self
 
 
 class _Timer:
-    """Per-phase time: CUDA events on the stream for device phases (read
-    once, at the end, so timing adds no synchronisation), the host clock
-    otherwise."""
+    """Per-phase time: CUDA events on the named device's current stream for
+    device phases (read once, at the end, so timing adds no
+    synchronisation), the host clock otherwise."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self):
         self.host = dict.fromkeys(_PHASES, 0.0)
         self.events: list[tuple[str, object, object]] = []
 
-    def mark(self):
-        if self.cuda:
+    def mark(self, device: torch.device):
+        if device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(device))
             return ev
         return time.perf_counter()
 
     def add(self, phase: str, start, end) -> None:
-        if self.cuda and phase in ("h2d", "kernels", "d2h"):
+        if isinstance(start, torch.cuda.Event):
             self.events.append((phase, start, end))
         else:
             self.host[phase] += end - start
@@ -163,6 +171,17 @@ class _Timer:
         for phase, a, b in self.events:
             out[phase] += a.elapsed_time(b) / 1e3
         return out
+
+
+def _check_mesh_device(mesh: Mesh, device) -> None:
+    if device is not None and not mesh.holds(device):
+        raise ValueError(f"device {device} is not in the mesh {mesh.devices}")
+
+
+def _synchronize(devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.current_stream(d).synchronize()
 
 
 def decode_corpus(
@@ -181,13 +200,24 @@ def decode_corpus(
     phase_seconds has "pack" and "emit" on the host clock and "h2d",
     "kernels", "d2h" as CUDA event time ("parse" is the caller's).
 
+    decode_fn=mesh.make_sharded_decoder(mesh) splits the streams over the
+    mesh: each chunk stays on the host and each mesh entry copies its own
+    lane block, so "kernels" (host clock, up to the entries' last kernel:
+    every entry is synchronised) includes those copies and "h2d" is 0;
+    `device` may then only name an entry of the mesh.
+
     device: None means CUDA (raises where CUDA is unavailable); "cpu" runs
     the plain PyTorch chain."""
-    device = resolve_device(device)
+    mesh = getattr(decode_fn, "mesh", None)
+    if mesh is not None:
+        _check_mesh_device(mesh, device)
+        device = torch.device("cpu")
+    else:
+        device = resolve_device(device)
     if decode_fn is None:
         decode_fn = decode_chunk
     n_streams = len(streams)
-    timer = _Timer(device)
+    timer = _Timer()
     states = init_state(n_streams, device)
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
     max_len = max((len(s) for s in streams), default=0)
@@ -200,14 +230,16 @@ def decode_corpus(
         stacked = GranuleBatch(*(torch.cat(f) for f in zip(*(b for b, _ in packed))))
         valids = [v for _, v in packed]
         timer.add("pack", t0, time.perf_counter())
-        e0 = timer.mark()
+        e0 = timer.mark(device)
         batch = batch_to(stacked, device)
         valid = torch.tensor(valids, dtype=torch.int32, device=device)
-        e1 = timer.mark()
+        e1 = timer.mark(device)
         pcm, states = decode_fn(batch, states, valid)
-        e2 = timer.mark()
+        if mesh is not None:  # the entries' work is queued on their own streams
+            _synchronize(mesh.devices)
+        e2 = timer.mark(device)
         host = pcm.cpu().numpy()
-        e3 = timer.mark()
+        e3 = timer.mark(device)
         timer.add("h2d", e0, e1)
         timer.add("kernels", e1, e2)
         timer.add("d2h", e2, e3)
@@ -234,11 +266,13 @@ def decode_corpus_fast(
     stream_bytes: list[bytes],
     chunk_t: int = 256,
     fetch: bool = True,
+    mesh: Mesh | None = None,
     drain: int | None = None,
     fused: bool = True,
     tail_buckets: tuple[int, ...] | None = None,
     n_threads: int = 1,
     mono_split: bool = True,
+    *,
     device=None,
 ):
     """Decode independent MP3 streams in lockstep [S, chunk_t] chunks.
@@ -250,6 +284,20 @@ def decode_corpus_fast(
     run's phase split). fetch=False holds the whole corpus's PCM on the card, twice over for a
     moment at the end (per-chunk rows, then their stack).
 
+    mesh (parallel/mesh.make_mesh): split the streams over the mesh's
+    devices; len(stream_bytes) must divide by mesh.size (ValueError
+    otherwise), and `device`, if given, must be an entry of the mesh.
+    Entry d decodes the caller's contiguous lane block d on its device with
+    the whole pipeline below, so the mono split never has to fall back
+    when a lane group does not divide the mesh, as JAX's does
+    (go_mp3_tpu/parallel/corpus.py:515-517), and no lane is reordered
+    across devices; chunk_widths then lists each entry's groups, and can
+    differ from JAX's, but the PCM cannot. With fetch=False, pcm is a
+    tuple of one int16 [C, S/n, chunk_t*576, 2] tensor per mesh entry, on
+    its device, the caller's lanes in order: concatenating them along
+    axis 1 on the host gives JAX's array. phase_seconds adds the entries'
+    card time per phase.
+
     drain=k (fused, fetch=True): decode in segments of k chunks, each a
     replay of one captured CUDA graph (an eager loop on the CPU); host and
     device memory stay O(k). fetch=False ignores it, as the JAX function
@@ -260,24 +308,35 @@ def decode_corpus_fast(
 
     device: None means CUDA (raises where CUDA is unavailable); "cpu" runs
     the plain PyTorch chain."""
-    device = resolve_device(device)
+    sharded = mesh is not None
+    if sharded:
+        _check_mesh_device(mesh, device)
+        mesh.blocks(len(stream_bytes))
+    else:  # one device: a mesh of one entry
+        mesh = Mesh((resolve_device(device),))
     if drain is not None and drain < 1:
         raise ValueError(f"drain must be >= 1, got {drain}")
     if not stream_bytes:
         return CorpusResult(pcm=[], granules=0, samples=0)
     if fused:
         try:
-            opts = (chunk_t, fetch, drain, tail_buckets, n_threads, device)
+            opts = (chunk_t, fetch, drain, tail_buckets, n_threads, mesh, sharded)
             try:
                 return _decode_fused(stream_bytes, *opts, split=mono_split)
             except _MonoSplitMismatch:
                 return _decode_fused(stream_bytes, *opts, split=False)
         except OverflowError:
-            return _decode(stream_bytes, chunk_t, device, fetch, int8=False)
+            return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=False)
     try:
-        return _decode(stream_bytes, chunk_t, device, fetch, int8=True)
+        return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=True)
     except OverflowError:
-        return _decode(stream_bytes, chunk_t, device, fetch, int8=False)
+        return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=False)
+
+
+def _device_result(kept, sharded: bool):
+    """fetch=False's PCM: per mesh entry, its chunk rows stacked."""
+    stacked = tuple(torch.stack(rows) for rows in kept)
+    return stacked if sharded else stacked[0]
 
 
 class _Int8Chunks:
@@ -324,37 +383,40 @@ class _Int16Chunks:
             p.close()
 
 
-def _decode(streams, chunk_t, device, fetch: bool, int8: bool):
+def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool):
     """The three-array interfaces, one chunk at a time."""
     n_streams = len(streams)
-    cuda = device.type == "cuda"
-    timer = _Timer(device)
+    blocks = mesh.blocks(n_streams)
+    pinned = any(d.type == "cuda" for d in mesh.devices)
+    timer = _Timer()
     source = (_Int8Chunks if int8 else _Int16Chunks)(streams)
 
     def host_buffers():
         arrays = tuple(
-            torch.empty((n_streams, chunk_t, w), dtype=dt, pin_memory=cuda)
+            torch.empty((n_streams, chunk_t, w), dtype=dt, pin_memory=pinned)
             for w, dt in source.widths
         )
-        valid = torch.empty(n_streams, dtype=torch.int32, pin_memory=cuda)
+        valid = torch.empty(n_streams, dtype=torch.int32, pin_memory=pinned)
         pcm = torch.empty(
             (n_streams, chunk_t * SAMPLES_PER_GR, 2), dtype=torch.int16,
-            pin_memory=cuda,
+            pin_memory=pinned,
         )
-        return {"in": arrays, "valid": valid, "pcm": pcm, "copied": None}
+        return {"in": arrays, "valid": valid, "pcm": pcm, "copied": []}
 
     # two sets, so the host parses chunk c+1 while chunk c's copies run;
-    # a set is refilled only after its H2D copies completed ("copied")
+    # a set is refilled only after every entry's H2D copies of it completed
+    # ("copied")
     bufs = (host_buffers(), host_buffers())
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
-    kept, valid_rows = [], []  # fetch=False: PCM on the device, valids
-    state = init_state(n_streams, device)
+    kept = [[] for _ in blocks]  # fetch=False: PCM rows per mesh entry
+    valid_rows = []
+    states = [init_state(hi - lo, dev) for dev, lo, hi in blocks]
     total = wire_bytes = 0
-    pending = None  # (pcm host buffer, valids, event marking its D2H done)
+    pending = None  # (pcm host buffer, valids, events marking its D2H done)
 
     def emit(pcm_host, valids, done) -> None:
-        if done is not None:
-            done.synchronize()
+        for ev in done:
+            ev.synchronize()
         t0 = time.perf_counter()
         host = pcm_host.numpy()
         for s in range(n_streams):
@@ -366,8 +428,8 @@ def _decode(streams, chunk_t, device, fetch: bool, int8: bool):
     try:
         for c in itertools.count():
             buf = bufs[c % 2]
-            if buf["copied"] is not None:
-                buf["copied"].synchronize()
+            for ev in buf["copied"]:
+                ev.synchronize()
             t0 = time.perf_counter()
             valids = buf["valid"].numpy()
             valids[:] = 0
@@ -378,34 +440,39 @@ def _decode(streams, chunk_t, device, fetch: bool, int8: bool):
             total += int(valids.sum())
 
             wire_bytes += sum(a.numel() * a.element_size() for a in buf["in"])
-            e0 = timer.mark()
-            dev_in = tuple(a.to(device, non_blocking=True) for a in buf["in"])
-            valid_dev = buf["valid"].to(device, non_blocking=True)
-            e1 = timer.mark()
-            buf["copied"] = e1 if cuda else None
-            pcm_dev, state = decode_chunk(dev_in, state, valid_dev)
-            e2 = timer.mark()
-            timer.add("h2d", e0, e1)
-            timer.add("kernels", e1, e2)
+            buf["copied"], done = [], []
+            for i, (dev, lo, hi) in enumerate(blocks):
+                e0 = timer.mark(dev)
+                dev_in = tuple(a[lo:hi].to(dev, non_blocking=True) for a in buf["in"])
+                valid_dev = buf["valid"][lo:hi].to(dev, non_blocking=True)
+                e1 = timer.mark(dev)
+                pcm_dev, states[i] = decode_chunk(dev_in, states[i], valid_dev)
+                e2 = timer.mark(dev)
+                timer.add("h2d", e0, e1)
+                timer.add("kernels", e1, e2)
+                if dev.type == "cuda":
+                    buf["copied"].append(e1)
+                if not fetch:
+                    kept[i].append(pcm_dev)
+                    continue
+                buf["pcm"][lo:hi].copy_(pcm_dev, non_blocking=True)
+                e3 = timer.mark(dev)
+                timer.add("d2h", e2, e3)
+                if dev.type == "cuda":
+                    done.append(e3)
             if not fetch:
-                kept.append(pcm_dev)
                 valid_rows.append(valids.copy())
                 continue
-            buf["pcm"].copy_(pcm_dev, non_blocking=True)
-            e3 = timer.mark()
-            timer.add("d2h", e2, e3)
-
             if pending is not None:
                 emit(*pending)
-            pending = (buf["pcm"], valids.copy(), e3 if cuda else None)
+            pending = (buf["pcm"], valids.copy(), done)
         if pending is not None:
             emit(*pending)
     finally:
         source.close()
-    if not fetch and kept:
-        stacked = torch.stack(kept)
-    if cuda:
-        torch.cuda.current_stream(device).synchronize()
+    if valid_rows:
+        pcm_dev = _device_result(kept, sharded)
+    _synchronize(mesh.devices)
     t0 = time.perf_counter()
     pcm = [b"".join(p) for p in parts]
     timer.add("emit", t0, time.perf_counter())
@@ -416,20 +483,22 @@ def _decode(streams, chunk_t, device, fetch: bool, int8: bool):
         phase_seconds=timer.seconds(),
         wire_bytes=wire_bytes,
     )
-    if fetch or not kept:
+    if fetch or not valid_rows:
         return res
-    return DeviceCorpus(stacked, np.stack(valid_rows), res)
+    return DeviceCorpus(pcm_dev, np.stack(valid_rows), res)
 
 
 # -- the fused path ----------------------------------------------------------
 
 
 class _Group(NamedTuple):
-    """Lanes [lo, hi) of the internal order; mono: the mono wire."""
+    """Lanes [lo, hi) of the internal order, decoded by mesh entry `shard`;
+    mono: the mono wire."""
 
     lo: int
     hi: int
     mono: bool
+    shard: int
 
 
 def _mono_first_frame(data: bytes) -> bool:
@@ -493,61 +562,84 @@ class _SegmentParser:
         self.batch.close()
 
 
+class _Shard:
+    """One mesh entry of the fused path: its device, its lane groups (indices
+    into the run's groups), their states, and on the card with drain its
+    static SegmentGraph slots and graphs (one per width tuple)."""
+
+    def __init__(self, device, lo, hi, group_idx, groups, order, k, t,
+                 fetch, use_graph):
+        self.device, self.lo, self.n = device, lo, hi - lo
+        self.gidx = group_idx
+        sizes = tuple(groups[j].hi - groups[j].lo for j in group_idx)
+        self.monos = tuple(groups[j].mono for j in group_idx)
+        self.states = tuple(init_state(s, device) for s in sizes)
+        self.slots = static_slots(k, t, sizes, device) if use_graph else None
+        self.graphs: dict = {}
+        # fetch=False: each group's lanes at their place in this entry's
+        # caller-order block, and the caller-order rows of every chunk
+        self.caller_idx = [] if fetch else [
+            torch.tensor([order[i] - lo for i in range(groups[j].lo, groups[j].hi)],
+                         device=device)
+            for j in group_idx]
+        self.kept: list[torch.Tensor] = []
+
+
 def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
-                  device, split: bool):
+                  mesh: Mesh, sharded: bool, split: bool):
     n_streams = len(streams)
-    cuda = device.type == "cuda"
-    timer = _Timer(device)
+    blocks = mesh.blocks(n_streams)
+    pinned = any(d.type == "cuda" for d in mesh.devices)
+    timer = _Timer()
     t = chunk_t
 
-    # lane groups: stereo lanes first, then mono (run_fused, :503-536)
-    order = list(range(n_streams))
-    groups = (_Group(0, n_streams, False),)
-    if split:
-        flags = [_mono_first_frame(d) for d in streams]
-        if any(flags):
-            order = ([i for i, f in enumerate(flags) if not f]
-                     + [i for i, f in enumerate(flags) if f])
-            n_stereo = n_streams - sum(flags)
-            groups = tuple(g for g in (_Group(0, n_stereo, False),
-                                       _Group(n_stereo, n_streams, True))
-                           if g.hi > g.lo)
+    # lane groups, per mesh entry: its stereo lanes first, then its mono
+    # lanes (run_fused, :503-536, within each lane block)
+    flags = ([_mono_first_frame(d) for d in streams] if split
+             else [False] * n_streams)
+    order: list[int] = []
+    groups: list[_Group] = []
+    for shard, (_, lo, hi) in enumerate(blocks):
+        for mono in (False, True):
+            lanes = [i for i in range(lo, hi) if flags[i] == mono]
+            if lanes:
+                groups.append(_Group(len(order), len(order) + len(lanes), mono, shard))
+                order += lanes
     sizes = tuple(g.hi - g.lo for g in groups)
-    monos = tuple(g.mono for g in groups)
     segmented = drain is not None and fetch
     k = drain if segmented else 1
+    shards = [
+        _Shard(dev, lo, hi, [j for j, g in enumerate(groups) if g.shard == i],
+               groups, order, k, t, fetch, segmented and dev.type == "cuda")
+        for i, (dev, lo, hi) in enumerate(blocks)
+    ]
 
     def host_set():
         """Pinned rows for one segment: the wire stacks (sized for the
         full width, viewed at the segment's), valids and PCM per group."""
         return {
-            "wire": [torch.empty(k * s * stream_nbytes(t, TAIL_LINES_FULL, m),
-                                 dtype=torch.uint8, pin_memory=cuda)
-                     for s, m in zip(sizes, monos)],
-            "valid": [torch.empty((k, s), dtype=torch.int32, pin_memory=cuda)
+            "wire": [torch.empty(k * s * stream_nbytes(t, TAIL_LINES_FULL, g.mono),
+                                 dtype=torch.uint8, pin_memory=pinned)
+                     for s, g in zip(sizes, groups)],
+            "valid": [torch.empty((k, s), dtype=torch.int32, pin_memory=pinned)
                       for s in sizes],
             "pcm": [torch.empty((k, s, t * SAMPLES_PER_GR, 2), dtype=torch.int16,
-                                pin_memory=cuda) for s in sizes] if fetch else None,
-            "copied": None,
+                                pin_memory=pinned) for s in sizes] if fetch else None,
+            "copied": [],
         }
 
+    # a set is refilled only after every entry's H2D copies of it completed
     sets = (host_set(), host_set())
     parser = _SegmentParser([streams[i] for i in order], k, t, groups, n_threads)
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
-    kept, valid_rows = [], []  # fetch=False: caller-order PCM per chunk
-    caller_idx = ([] if fetch else
-                  [torch.tensor(order[g.lo:g.hi], device=device) for g in groups])
-    states = tuple(init_state(s, device) for s in sizes)
-    use_graph = segmented and cuda
-    slots = static_slots(k, t, sizes, device) if use_graph else None
-    graphs: dict = {}  # one SegmentGraph per width tuple
+    valid_rows = []  # fetch=False: internal-order valids per chunk
     widths_log, wire_bytes, total, capture_s = [], 0, 0, 0.0
     replays0 = SegmentGraph.replays
-    pending = None  # (host set, valids [k, S] internal, chunks, D2H event)
+    pending = None  # (host set, valids [k, S] internal, chunks, D2H events)
 
     def emit(hs, valids, n_seg, done) -> None:
-        if done is not None:
-            done.synchronize()
+        for ev in done:
+            ev.synchronize()
         t0 = time.perf_counter()
         for g, pcm in zip(groups, hs["pcm"]):
             host = pcm.numpy()
@@ -559,11 +651,59 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
                             host[c, s - g.lo, : v * SAMPLES_PER_GR].tobytes())
         timer.add("emit", t0, time.perf_counter())
 
+    def run_shard(sh: _Shard, hs, wires, widths, n_seg, done) -> None:
+        """Entry sh's part of a segment: H2D of its rows, its groups
+        decoded on its device, and (fetch) the D2H of its PCM."""
+        nonlocal capture_s
+        dev = sh.device
+        w_sh = tuple(widths[j] for j in sh.gidx)
+        rows = [wires[j] for j in sh.gidx]
+        vbufs = [hs["valid"][j] for j in sh.gidx]
+        e0 = timer.mark(dev)
+        if sh.slots is not None:
+            graph = sh.graphs.get(w_sh)
+            if graph is None:
+                graph = sh.graphs[w_sh] = SegmentGraph(t, w_sh, sh.monos, *sh.slots)
+                e0 = timer.mark(dev)  # capture is set-up, not h2d
+                capture_s += graph.capture_seconds
+            for dst, src in zip(graph.bufs, rows):
+                dst.copy_(src, non_blocking=True)
+            for dst, src in zip(sh.slots[0], vbufs):
+                dst.copy_(src, non_blocking=True)
+            e1 = timer.mark(dev)
+            graph.replay()
+            pcm_dev = sh.slots[2]
+        else:
+            bufs_dev = [w.to(dev, non_blocking=True) for w in rows]
+            valids_dev = [v.to(dev, non_blocking=True) for v in vbufs]
+            e1 = timer.mark(dev)
+            pcm_dev, sh.states = run_segment_eager(
+                bufs_dev, valids_dev, sh.states, t, w_sh, sh.monos)
+        if not fetch:  # caller-order rows of this entry, on its device
+            for c in range(n_seg):
+                out = torch.empty((sh.n, t * SAMPLES_PER_GR, 2),
+                                  dtype=torch.int16, device=dev)
+                for idx, pcm in zip(sh.caller_idx, pcm_dev):
+                    out.index_copy_(0, idx, pcm[c])
+                sh.kept.append(out)
+        e2 = timer.mark(dev)
+        if dev.type == "cuda":
+            hs["copied"].append(e1)
+        timer.add("h2d", e0, e1)
+        timer.add("kernels", e1, e2)
+        if fetch:
+            for j, src in zip(sh.gidx, pcm_dev):
+                hs["pcm"][j].copy_(src, non_blocking=True)
+            e3 = timer.mark(dev)
+            timer.add("d2h", e2, e3)
+            if dev.type == "cuda":
+                done.append(e3)
+
     try:
         for seg in itertools.count():
             hs = sets[seg % 2]
-            if hs["copied"] is not None:
-                hs["copied"].synchronize()
+            for ev in hs["copied"]:
+                ev.synchronize()
             t0 = time.perf_counter()
             n_seg = parser.parse()
             timer.add("parse", t0, time.perf_counter())
@@ -598,46 +738,15 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
             total += int(valids.sum())
             timer.add("pack", t0, time.perf_counter())
 
-            e0 = timer.mark()
-            if use_graph:
-                graph = graphs.get(widths)
-                if graph is None:
-                    graph = graphs[widths] = SegmentGraph(t, widths, monos, *slots)
-                    e0 = timer.mark()  # capture is set-up, not h2d
-                    capture_s += graph.capture_seconds
-                for dst, src in zip(graph.bufs, wires):
-                    dst.copy_(src, non_blocking=True)
-                for dst, src in zip(slots[0], hs["valid"]):
-                    dst.copy_(src, non_blocking=True)
-                e1 = timer.mark()
-                graph.replay()
-                pcm_dev = slots[2]
-            else:
-                bufs_dev = [w.to(device, non_blocking=True) for w in wires]
-                valids_dev = [v.to(device, non_blocking=True) for v in hs["valid"]]
-                e1 = timer.mark()
-                pcm_dev, states = run_segment_eager(
-                    bufs_dev, valids_dev, states, t, widths, monos)
-            if not fetch:  # caller-order rows, on the card
-                for c in range(n_seg):
-                    rows = torch.empty((n_streams, t * SAMPLES_PER_GR, 2),
-                                       dtype=torch.int16, device=device)
-                    for idx, pcm in zip(caller_idx, pcm_dev):
-                        rows.index_copy_(0, idx, pcm[c])
-                    kept.append(rows)
-                    valid_rows.append(valids[c])
-            e2 = timer.mark()
-            hs["copied"] = e1 if cuda else None
-            timer.add("h2d", e0, e1)
-            timer.add("kernels", e1, e2)
+            hs["copied"], done = [], []
+            for sh in shards:
+                run_shard(sh, hs, wires, widths, n_seg, done)
             if fetch:
-                for dst, src in zip(hs["pcm"], pcm_dev):
-                    dst.copy_(src, non_blocking=True)
-                e3 = timer.mark()
-                timer.add("d2h", e2, e3)
                 if pending is not None:
                     emit(*pending)
-                pending = (hs, valids, n_seg, e3 if cuda else None)
+                pending = (hs, valids, n_seg, done)
+            else:
+                valid_rows += list(valids[:n_seg])
             if n_seg < k:
                 break
         if pending is not None:
@@ -645,10 +754,9 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     finally:
         parser.close()
 
-    if not fetch and kept:
-        stacked = torch.stack(kept)
-    if cuda:
-        torch.cuda.current_stream(device).synchronize()
+    if valid_rows:
+        pcm_dev = _device_result([sh.kept for sh in shards], sharded)
+    _synchronize(mesh.devices)
     t0 = time.perf_counter()
     pcm = [b"".join(p) for p in parts]
     timer.add("emit", t0, time.perf_counter())
@@ -662,9 +770,9 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
         graph_replays=SegmentGraph.replays - replays0,
         graph_capture_seconds=capture_s,
     )
-    if fetch or not kept:
+    if fetch or not valid_rows:
         return res
     internal = np.stack(valid_rows)
     caller = np.empty_like(internal)
     caller[:, order] = internal
-    return DeviceCorpus(stacked, caller, res)
+    return DeviceCorpus(pcm_dev, caller, res)

@@ -78,39 +78,44 @@ class SegmentGraph:
         t0 = time.perf_counter()
         self.t, self.widths, self.monos = t, tuple(widths), tuple(monos)
         self.valids, self.states, self.pcm = valids, states, pcm
-        self.bufs = tuple(
-            torch.zeros((v.shape[0], v.shape[1], stream_nbytes(t, w, m)),
-                        dtype=torch.uint8, device=dev)
-            for v, w, m in zip(valids, self.widths, self.monos)
-        )
-        # warm-up: every kernel once, eagerly and on a side stream, into
-        # fresh outputs (the static state and PCM stay as they are). The
-        # first launch of a kernel loads its module and the wrappers upload
-        # the tables: neither may happen while a stream is capturing.
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run_segment_eager(self.bufs, valids, states, t, self.widths, self.monos)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        self.device = dev
+        # every capture and launch on the buffers' device, whatever the
+        # caller's current device is
+        with torch.cuda.device(dev):
+            self.bufs = tuple(
+                torch.zeros((v.shape[0], v.shape[1], stream_nbytes(t, w, m)),
+                            dtype=torch.uint8, device=dev)
+                for v, w, m in zip(valids, self.widths, self.monos)
+            )
+            # warm-up: every kernel once, eagerly and on a side stream, into
+            # fresh outputs (the static state and PCM stay as they are). The
+            # first launch of a kernel loads its module and the wrappers upload
+            # the tables: neither may happen while a stream is capturing.
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                run_segment_eager(self.bufs, valids, states, t, self.widths, self.monos)
+            torch.cuda.current_stream(dev).wait_stream(side)
 
-        before = K.launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            _, new = run_segment_eager(self.bufs, valids, states, t,
-                                       self.widths, self.monos, pcm=pcm)
-            for st, nw in zip(states, new):
-                st.store.copy_(nw.store)
-                st.v_fifo.copy_(nw.v_fifo)
-        self.launches = {}
-        for kern in K.KERNELS:
-            self.launches[kern.__name__] = kern.launches - before[kern.__name__]
-            kern.launches = before[kern.__name__]
+            before = K.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _, new = run_segment_eager(self.bufs, valids, states, t,
+                                           self.widths, self.monos, pcm=pcm)
+                for st, nw in zip(states, new):
+                    st.store.copy_(nw.store)
+                    st.v_fifo.copy_(nw.v_fifo)
+            self.launches = {}
+            for kern in K.KERNELS:
+                self.launches[kern.__name__] = kern.launches - before[kern.__name__]
+                kern.launches = before[kern.__name__]
         # host clock; capture begins with a device synchronisation, so this
         # includes the warm-up's card time
         self.capture_seconds = time.perf_counter() - t0
 
     def replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         SegmentGraph.replays += 1
         for kern in K.KERNELS:
             kern.launches += self.launches[kern.__name__]

@@ -162,9 +162,16 @@ def test_backend_by_position_and_exact_backend():
 
 
 def test_golden_and_unknown_backends_raise():
+    """The golden backend exists (tests/test_torch_conformance.py holds its
+    PCM) and raises where go_mp3_tpu's does: no frame, or another
+    backend's checkpoint; an unknown backend raises."""
     data = (CONF / "synthetic_escape.mp3").read_bytes()
-    with pytest.raises(MP3Error, match="golden"):
-        Decoder(data, backend="golden", device="cpu")
+    golden = Decoder(data, backend="golden", device="cpu")
+    assert golden.device is None and golden._native is None
+    with pytest.raises(MP3Error, match="no decodable frame"):
+        Decoder(b"\x00" * 4096, backend="golden")
+    with pytest.raises(MP3Error, match="mismatch"):
+        golden.resume(Decoder(data, device="cpu").checkpoint())
     with pytest.raises(MP3Error, match="unknown"):
         Decoder(data, backend="fast", device="cpu")
 

@@ -431,15 +431,19 @@ def test_fused_overflow_falls_back_to_int16_interface():
 
 
 def test_signature_matches_jax():
-    """Every keyword of JAX's decode_corpus_fast but mesh, in its order and
-    with its defaults, then the port's device."""
-    jax_params = [p for p in inspect.signature(JC.decode_corpus_fast).parameters.values()
-                  if p.name != "mesh"]
+    """Every parameter of JAX's decode_corpus_fast, mesh fourth, in its
+    order, kind and default, then a keyword-only device: a positional call
+    written for JAX binds the same parameters on the port."""
+    jax_params = list(inspect.signature(JC.decode_corpus_fast).parameters.values())
     port_params = list(inspect.signature(decode_corpus_fast).parameters.values())
     assert [p.name for p in port_params] == [p.name for p in jax_params] + ["device"]
+    assert port_params[3].name == "mesh"
     for p, q in zip(port_params, jax_params):
-        assert p.default == q.default, p.name
-    assert port_params[1].default == 256
+        assert (p.kind, p.default) == (q.kind, q.default), p.name
+    assert port_params[-1].kind is inspect.Parameter.KEYWORD_ONLY
+    assert port_params[-1].default is None
+    bound = inspect.signature(decode_corpus_fast).bind([b""], 64, True, None, 4)
+    assert bound.arguments["mesh"] is None and bound.arguments["drain"] == 4
 
 
 def test_empty_streams_and_bad_drain():

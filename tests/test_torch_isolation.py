@@ -18,9 +18,11 @@ import torch_synthetic as syn  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "go_mp3_tpu_torch",
+    "go_mp3_tpu_torch.conformance",
     "go_mp3_tpu_torch.decoder",
     "go_mp3_tpu_torch.device",
     "go_mp3_tpu_torch.gapless",
+    "go_mp3_tpu_torch.golden",
     "go_mp3_tpu_torch.models",
     "go_mp3_tpu_torch.models.native_pipeline",
     "go_mp3_tpu_torch.models.pipeline",
@@ -32,6 +34,7 @@ MODULES = [
     "go_mp3_tpu_torch.ops.wire",
     "go_mp3_tpu_torch.parallel",
     "go_mp3_tpu_torch.parallel.corpus",
+    "go_mp3_tpu_torch.parallel.mesh",
     "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
 ]
@@ -56,6 +59,8 @@ def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "from go_mp3_tpu_torch.golden import golden_decoder_class\n"
+        "golden_decoder_class()()  # the oracle loaded, as Decoder(backend='golden') does\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "assert not [m for m in sys.modules if m.startswith(\n"
