@@ -5,24 +5,36 @@
 // one-hot extraction of the new `store` (:540-542). Plain version:
 // hybrid_ref in go_mp3_tpu_torch/ops/granule.py.
 //
-// What bounds it on an H100: the sequential overlap-add. Each subband's
-// output at granule t needs granule t-1's upper IMDCT half, so this design
-// walks the T granules of a chunk in order, and its parallelism is one
-// thread per (stream, channel, subband): 4,096 threads at 64 streams. The
-// arithmetic (648 FMA per subband-granule) and the bytes (4,608 in, 4,608
-// out per granule) are small beside that latency chain.
+// The overlap-add is a shift, not a recurrence: out[t] = raw[t][:18] +
+// raw[t-1][18:], with raw[-1][18:] = the incoming store (_overlap_fold).
+// Granule t's output needs its own lines and granule t-1's upper IMDCT
+// half, nothing older, so every granule is independent work.
 //
-// Design: block = the 32 subbands of one (stream, channel). Each thread
-// loads its subband's 18 lines, applies the butterflies of its two
-// boundaries (reading the 8 neighbouring lines on each side from the same
-// granule row, still in L1), runs the 18 -> 36 product against the
-// cosine/window tables in constant memory (every thread of a warp reads the
-// same entry, so the constant cache broadcasts it), adds the carried store
-// held in registers, and writes the frequency-inverted 18 outputs. The
-// store after granule valid-1 is written out; with valid == 0 it is the
-// input store. The TPU chain's time shift over a whole chunk becomes this
-// in-register carry; no output depends on T or on the granule's place in
-// the chunk, so chunk boundaries cannot change a bit of it.
+// What bounds it on an H100: memory. Per granule and channel it reads
+// 2,304 bytes and writes 2,304, and does 20,736 FMA (648 per subband):
+// 4.5 FMA per byte, under the card's ~10 FP32 FMA per byte of HBM.
+//
+// Design: one warp per (stream, channel, run of G consecutive granules),
+// lane = subband, up to four warps a block. At the start of a run the warp
+// computes granule t0-1's upper half (antialias, the upper 18 IMDCT
+// outputs, the window), or takes the incoming store at t0 = 0; inside the
+// run the upper half carries in registers. Each 576-float granule row is
+// staged through shared memory with coalesced 16-byte loads, and each
+// output row leaves the same way, so no lane makes 18 strided accesses to
+// device memory. Every table sits in shared memory: the windows and
+// butterfly constants (a mixed block's lanes index the windows by their own
+// block type), and the cosine and short-block matrices as [output][j] rows
+// that every lane of a warp reads at the same address, 16 bytes at a time.
+// (In constant memory, as FMA operands, the matrices' 5.2 KB outgrew the
+// SM's constant cache and the kernel stalled on it: 0.50 ms a chunk against
+// ~0.03 ms of issued instructions.) The wrapper picks G (4, 2 or 1) so
+// that a chunk of 64 streams and a single stream both spread over the card.
+//
+// Arithmetic: each output is summed as before, lo and hi over j = 0..17
+// from 0.0f, then the window, then + store, then the sign, with every
+// multiply-add written as an explicit fused or unfused operation, so the
+// predecessor's upper half is bit-identical to the one a run carries and
+// no output depends on G, on T or on where a chunk was split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,84 +43,167 @@
 
 namespace {
 
-__constant__ float c_cs[8];
-__constant__ float c_ca[8];
-__constant__ float c_cos36[18][36];
-__constant__ float c_m3[18][36];     // composed short-block matrix
-__constant__ float c_win[4][36];
+constexpr int kMaxWarps = 4;  // (stream, channel, run) units per block
+constexpr int kRow = 576;     // lines of one granule and channel
+constexpr int kJ = 20;        // a coefficient row: j = 0..17, padded to 5 float4
 
-__global__ void __launch_bounds__(32)
+// The IMDCT matrices as rows [output p][j] (cos36 and the composed
+// short-block m3, 36 rows each), padded with zeros to kJ.
+__device__ __align__(16) float g_tab[2][36][kJ];
+__device__ float g_win[4 * 36];
+__device__ float g_cs[8];
+__device__ float g_ca[8];
+
+// One 576-float row, device memory -> shared memory, 16 bytes a lane.
+__device__ __forceinline__ void copy_row(float* __restrict__ dst,
+                                         const float* __restrict__ src, int lane) {
+  const float4* s = reinterpret_cast<const float4*>(src);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int k = lane; k < kRow / 4; k += 32) d[k] = s[k];
+}
+
+// Subband sb's 18 lines of the staged row, with the butterflies of its
+// two boundaries where the block class has them (long: all 31, mixed:
+// boundary 0 only). The butterflies read the unmodified staged lines.
+__device__ __forceinline__ void antialias(const float* __restrict__ xs, int sb,
+                                          int cls, const float* __restrict__ cs,
+                                          const float* __restrict__ ca,
+                                          float (&y)[18]) {
+#pragma unroll
+  for (int i = 0; i < 18; i++) y[i] = xs[sb * 18 + i];
+  if (sb >= 1 && (cls == 0 || (cls == 2 && sb == 1))) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const float up = xs[sb * 18 + i], lo = xs[sb * 18 - 1 - i];
+      y[i] = __fmaf_rn(up, cs[i], __fmul_rn(lo, ca[i]));
+    }
+  }
+  if (sb <= 30 && (cls == 0 || (cls == 2 && sb == 0))) {
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const float lo = xs[sb * 18 + 17 - i], up = xs[(sb + 1) * 18 + i];
+      y[17 - i] = __fmaf_rn(lo, cs[i], -__fmul_rn(up, ca[i]));
+    }
+  }
+}
+
+// sum over j = 0..17 of y[j] * row[j], from 0.0f, j in order, each step an
+// explicit fused multiply-add; the row is read in 16-byte pieces, the same
+// address in every lane (a broadcast).
+__device__ __forceinline__ float dot18(const float (&y)[18], const float* __restrict__ row) {
+  const float4* r = reinterpret_cast<const float4*>(row);
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const float4 c = r[q];
+    acc = __fmaf_rn(y[4 * q], c.x, acc);
+    acc = __fmaf_rn(y[4 * q + 1], c.y, acc);
+    acc = __fmaf_rn(y[4 * q + 2], c.z, acc);
+    acc = __fmaf_rn(y[4 * q + 3], c.w, acc);
+  }
+  const float4 c = r[4];
+  acc = __fmaf_rn(y[16], c.x, acc);
+  return __fmaf_rn(y[17], c.y, acc);
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ ginfo,
               const float* __restrict__ store_in, const int32_t* __restrict__ valid,
-              float* __restrict__ x18, float* __restrict__ store_out, int T) {
-  const int s = blockIdx.x >> 1, c = blockIdx.x & 1;
-  const int sb = threadIdx.x;
+              float* __restrict__ x18, float* __restrict__ store_out, int S, int T,
+              int G) {
+  __shared__ __align__(16) float s_tab[2 * 36 * kJ];
+  __shared__ float s_win[4 * 36];
+  __shared__ float s_cs[8], s_ca[8];
+  __shared__ __align__(16) float s_in[kMaxWarps][kRow];
+  __shared__ __align__(16) float s_out[kMaxWarps][kRow];
+  {
+    const float4* src = reinterpret_cast<const float4*>(&g_tab[0][0][0]);
+    float4* dst = reinterpret_cast<float4*>(s_tab);
+    for (int k = threadIdx.x; k < 2 * 36 * kJ / 4; k += blockDim.x) dst[k] = src[k];
+  }
+  for (int k = threadIdx.x; k < 4 * 36; k += blockDim.x) s_win[k] = g_win[k];
+  if (threadIdx.x < 8) {
+    s_cs[threadIdx.x] = g_cs[threadIdx.x];
+    s_ca[threadIdx.x] = g_ca[threadIdx.x];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, sb = threadIdx.x & 31;
+  const int runs = (T + G - 1) / G;
+  const long long unit = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (unit >= (long long)S * 2 * runs) return;
+  const int run = (int)(unit % runs);
+  const int sc = (int)(unit / runs);  // stream * 2 + channel
+  const int s = sc >> 1, c = sc & 1;
+  const int t0 = run * G, t1 = min(t0 + G, T);
   const int nv = min(max(valid[s], 0), T);
-  const size_t st_off = (((size_t)s * 2 + c) * 32 + sb) * 18;
+  const size_t st_off = ((size_t)sc * 32 + sb) * 18;
+  float* xs = s_in[warp];
+  float* os = s_out[warp];
+  const bool odd = sb & 1;
 
   float store[18];
+  float y[18];
+  if (t0 == 0) {
 #pragma unroll
-  for (int i = 0; i < 18; i++) store[i] = store_in[st_off + i];
-  if (nv == 0) {
+    for (int i = 0; i < 18; i++) store[i] = store_in[st_off + i];
+    if (nv == 0) {
 #pragma unroll
-    for (int i = 0; i < 18; i++) store_out[st_off + i] = store[i];
+      for (int i = 0; i < 18; i++) store_out[st_off + i] = store[i];
+    }
+  } else {  // granule t0-1's upper half: what the run before this one carries out
+    copy_row(xs, x + (((size_t)s * T + t0 - 1) * 2 + c) * kRow, sb);
+    __syncwarp();
+    const int gi = ginfo[(size_t)s * T + t0 - 1];
+    const int bt = (gi >> (2 * c)) & 3, cls = (gi >> (4 + 2 * c)) & 3;
+    antialias(xs, sb, cls, s_cs, s_ca, y);
+    const int bt_eff = (cls == 2 && sb < 2) ? 0 : bt;
+    if (bt_eff == 2) {
+      const float* m3 = s_tab + 36 * kJ;
+#pragma unroll
+      for (int p = 0; p < 18; p++) store[p] = dot18(y, m3 + (p + 18) * kJ);
+    } else {
+      const float* w = s_win + bt_eff * 36;
+#pragma unroll
+      for (int p = 0; p < 18; p++)
+        store[p] = __fmul_rn(dot18(y, s_tab + (p + 18) * kJ), w[p + 18]);
+    }
   }
 
-  for (int t = 0; t < T; t++) {
+  for (int t = t0; t < t1; t++) {
     const size_t row = ((size_t)s * T + t) * 2 + c;
-    const float* xg = x + row * 576;
+    __syncwarp();  // the previous granule's reads of xs and os are done
+    copy_row(xs, x + row * kRow, sb);
+    __syncwarp();
     const int gi = ginfo[(size_t)s * T + t];
-    const int bt = (gi >> (2 * c)) & 3;
-    const int cls = (gi >> (4 + 2 * c)) & 3;
-
-    float y[18];
-#pragma unroll
-    for (int i = 0; i < 18; i++) y[i] = xg[sb * 18 + i];
-    // butterflies: long blocks all 31 boundaries, mixed boundary 0 only
-    if (sb >= 1 && (cls == 0 || (cls == 2 && sb == 1))) {
-#pragma unroll
-      for (int i = 0; i < 8; i++) {
-        const float up = xg[sb * 18 + i], lo = xg[sb * 18 - 1 - i];
-        y[i] = up * c_cs[i] + lo * c_ca[i];
-      }
-    }
-    if (sb <= 30 && (cls == 0 || (cls == 2 && sb == 0))) {
-#pragma unroll
-      for (int i = 0; i < 8; i++) {
-        const float lo = xg[sb * 18 + 17 - i], up = xg[(sb + 1) * 18 + i];
-        y[17 - i] = lo * c_cs[i] - up * c_ca[i];
-      }
-    }
-
+    const int bt = (gi >> (2 * c)) & 3, cls = (gi >> (4 + 2 * c)) & 3;
+    antialias(xs, sb, cls, s_cs, s_ca, y);
     const int bt_eff = (cls == 2 && sb < 2) ? 0 : bt;
-    float* o = x18 + row * 576 + sb * 18;
-    const bool odd = sb & 1;
+    float* o = os + sb * 18;
     if (bt_eff == 2) {
+      const float* m3 = s_tab + 36 * kJ;
 #pragma unroll
       for (int p = 0; p < 18; p++) {
-        float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 18; j++) {
-          lo += y[j] * c_m3[j][p];
-          hi += y[j] * c_m3[j][p + 18];
-        }
-        const float out = lo + store[p];
+        const float lo = dot18(y, m3 + p * kJ), hi = dot18(y, m3 + (p + 18) * kJ);
+        const float out = __fadd_rn(lo, store[p]);
         store[p] = hi;
         o[p] = (odd && (p & 1)) ? -out : out;
       }
     } else {
+      const float* w = s_win + bt_eff * 36;
 #pragma unroll
       for (int p = 0; p < 18; p++) {
-        float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 18; j++) {
-          lo += y[j] * c_cos36[j][p];
-          hi += y[j] * c_cos36[j][p + 18];
-        }
-        const float out = lo * c_win[bt_eff][p] + store[p];
-        store[p] = hi * c_win[bt_eff][p + 18];
+        const float lo = dot18(y, s_tab + p * kJ), hi = dot18(y, s_tab + (p + 18) * kJ);
+        const float out = __fmaf_rn(lo, w[p], store[p]);
+        store[p] = __fmul_rn(hi, w[p + 18]);
         o[p] = (odd && (p & 1)) ? -out : out;
       }
+    }
+    __syncwarp();
+    {
+      const float4* src = reinterpret_cast<const float4*>(os);
+      float4* dst = reinterpret_cast<float4*>(x18 + row * kRow);
+      for (int k = sb; k < kRow / 4; k += 32) dst[k] = src[k];
     }
     if (t == nv - 1) {
 #pragma unroll
@@ -126,24 +221,37 @@ int gomp3_hybrid_init(int device, const float* cs, const float* ca,
                       const float* cos36, const float* m3, const float* win) {
   gomp3::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  cudaMemcpyToSymbol(c_cs, cs, sizeof(float) * 8);
-  cudaMemcpyToSymbol(c_ca, ca, sizeof(float) * 8);
-  cudaMemcpyToSymbol(c_cos36, cos36, sizeof(float) * 18 * 36);
-  cudaMemcpyToSymbol(c_m3, m3, sizeof(float) * 18 * 36);
-  cudaMemcpyToSymbol(c_win, win, sizeof(float) * 4 * 36);
+  cudaMemcpyToSymbol(g_cs, cs, sizeof(float) * 8);
+  cudaMemcpyToSymbol(g_ca, ca, sizeof(float) * 8);
+  float tab[2][36][kJ];  // [matrix][p][j], zero past j = 17
+  for (int p = 0; p < 36; p++) {
+    for (int j = 0; j < kJ; j++) {
+      tab[0][p][j] = j < 18 ? cos36[j * 36 + p] : 0.0f;
+      tab[1][p][j] = j < 18 ? m3[j * 36 + p] : 0.0f;
+    }
+  }
+  cudaMemcpyToSymbol(g_tab, tab, sizeof(tab));
+  cudaMemcpyToSymbol(g_win, win, sizeof(float) * 4 * 36);
   return (int)cudaGetLastError();
 }
 
 // x f32 [S][T][2][576], ginfo i32 [S][T], store_in f32 [S][2][32][18],
 // valid i32 [S] -> x18 f32 [S][T][2][32][18], store_out f32 [S][2][32][18].
+// G granules per warp, `warps` warps per block (1..4); x and x18 16-byte
+// aligned.
 int gomp3_hybrid(int device, const float* x, const int32_t* ginfo,
                  const float* store_in, const int32_t* valid, float* x18,
-                 float* store_out, int S, int T, void* stream) {
+                 float* store_out, int S, int T, int G, int warps, void* stream) {
   gomp3::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  if (S > 0 && T > 0)
-    hybrid_kernel<<<S * 2, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, ginfo, store_in, valid, x18, store_out, T);
+  if (G < 1 || warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  if (S > 0 && T > 0) {
+    const long long units = (long long)S * 2 * ((T + G - 1) / G);
+    const long long blocks = (units + warps - 1) / warps;
+    hybrid_kernel<<<(unsigned)blocks, warps * 32, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        x, ginfo, store_in, valid, x18, store_out, S, T, G);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,11 @@
-"""The port's Decoder: go_mp3_tpu.Decoder with its device DSP on PyTorch.
+"""The port's public streaming decoder, its DSP on PyTorch.
 
-The parameters, sources and backends of go_mp3_tpu.Decoder
-(go_mp3_tpu/decoder.py:48-117), plus a keyword-only `device`:
+A pull-based PCM stream (read/seek) over bytes or any binary file-like
+object, with the JAX package's parameters, sources and backends plus a
+keyword-only `device`: frame indexing for length and duration,
+byte-accurate seeking with a warm-up re-decode, checkpoint and resume.
+Output is 16-bit little-endian stereo (4 bytes a sample), mono duplicated.
+
  - backend="device" on bytes or a seekable binary file: the C++ parser
    takes the stream whole, and each chunk of up to 128 granules goes
    through the packed int16 interface (_NativeStream);
@@ -11,15 +15,12 @@ The parameters, sources and backends of go_mp3_tpu.Decoder
  - backend="device" with use_native=False, or without the native library:
    the pure-Python parser, whose frames models.pipeline.StreamDecoder
    stages as GranuleBatches (_DeviceBackend);
- - backend="exact": go_mp3_tpu's own C++ parse and exact C++ DSP, which
-   need no device and no JAX.
+ - backend="exact": the C++ parse and the C++ DSP that replicates the
+   reference decoder's float32 operation order (bit-exact, no device);
+ - backend="golden": the numpy float64 oracle (golden/) on the pure-Python
+   parse path (no device).
 The device paths run ops.kernels.decode_chunk (K1 -> K2 -> K3 on CUDA, the
-plain chain on the CPU) with the DSP state kept on `device`. read, seek,
-length and the rest are inherited.
-
-backend="golden" is go_mp3_tpu's numpy float64 oracle
-(go_mp3_tpu/ops/reference_dsp.py, loaded without JAX by golden.py) on the
-pure-Python parse path, as in go_mp3_tpu; like "exact", it needs no device.
+plain chain on the CPU) with the DSP state kept on `device`.
 """
 
 from __future__ import annotations
@@ -30,130 +31,48 @@ from typing import BinaryIO
 import numpy as np
 import torch
 
-from go_mp3_tpu import decoder as _base
-from go_mp3_tpu.bitstream.bits import BitReader
-from go_mp3_tpu.bitstream.frameheader import FrameHeader
-from go_mp3_tpu.bitstream.parser import FrameReader, ParsedFrame
-from go_mp3_tpu.bitstream.source import Source
-from go_mp3_tpu.consts import SAMPLES_PER_GR, SIDE_WIDTH, MP3Error
-from go_mp3_tpu.decoder import NotSeekableError
-from go_mp3_tpu.native import lib as native
-
+from .bitstream.bits import BitReader
+from .bitstream.frameheader import FrameHeader, read_header
+from .bitstream.parser import FrameReader, ParsedFrame
+from .bitstream.source import Source
+from .consts import (
+    SAMPLES_PER_GR,
+    SIDE_WIDTH,
+    EOFError_,
+    MP3Error,
+    SyncSearchLimitError,
+    UnexpectedEOFError,
+)
 from .device import resolve_device
-from .golden import golden_decoder_class
+from .golden import GoldenDecoder
 from .models.pipeline import StreamDecoder
+from .native import lib as native
 from .ops.granule import init_state, state_from_numpy, state_to_numpy
 from .ops.kernels import decode_chunk
+from .utils.state import checkpoint_from_bytes, checkpoint_to_bytes
 
 __all__ = ["Decoder", "MP3Error", "NotSeekableError"]
 
-
-class _NativeStream(_base._NativeStream):
-    """C++ parse -> the port's chunk decode, with the state on `device`."""
-
-    def __init__(self, data: bytes, device: torch.device):
-        self._np = np
-        self._data = data
-        self._parser = native.NativeParser(data)
-        self._index_stream = native.index_stream
-        self._NativeParser = native.NativeParser
-        self._dsp_kind = "device"
-        self._device = device
-        self._state = init_state(1, device)
-
-    def reset_state(self) -> None:
-        self._state = init_state(1, self._device)
-
-    def _decode_granules(self, want: int) -> bytes | None:
-        want = min(want, self.CHUNK)
-        spectra = np.zeros((self.CHUNK, 1152), np.int16)
-        side = np.zeros((self.CHUNK, SIDE_WIDTH), np.int16)
-        n = self._parse_packed(spectra[:want], side[:want])
-        if n == 0:
-            return None
-        dev = self._device
-        packed = (
-            torch.from_numpy(spectra)[None].to(dev),
-            torch.from_numpy(side)[None].to(dev),
-        )
-        valid = torch.tensor([n], dtype=torch.int32, device=dev)
-        pcm, self._state = decode_chunk(packed, self._state, valid)
-        return pcm[0, : n * SAMPLES_PER_GR].cpu().numpy().tobytes()
+INVALID_LENGTH = -1
 
 
-class _StreamingNativeStream(_base._StreamingNativeStream, _NativeStream):
-    """The C++ streaming parser (bounded memory, no index, no seek) ->
-    the port's chunk decode. Feeding, parsing, index() and restart() are
-    the base streaming class's; _decode_granules and reset_state are the
-    port's _NativeStream's, which comes next in the MRO."""
-
-    def __init__(self, reader, device: torch.device):
-        self._np = np
-        self._reader = reader
-        self._data = b""
-        self._parser = native.StreamingNativeParser()
-        self._dsp_kind = "device"
-        self._device = device
-        self._state = init_state(1, device)
-
-
-def _maybe_native_stream(reader, device: torch.device):
-    """go_mp3_tpu/decoder.py:488-524 with the port's streams: the
-    whole-buffer parse for bytes and seekable sources, the streaming parser
-    for the others; None where the native library is missing or a seekable
-    source cannot be read whole."""
-    if not native.available():
-        return None
-    if isinstance(reader, io.BytesIO):
-        data = reader.getvalue()[reader.tell():]
-    else:
-        try:
-            seekable = bool(reader.seekable())
-        except (AttributeError, OSError, ValueError):
-            seekable = False
-        if not seekable:
-            return _StreamingNativeStream(reader, device)
-        try:
-            start = reader.tell()
-            data = reader.read()
-            reader.seek(start)
-        except (OSError, ValueError):
-            return None
-    return _NativeStream(data, device) if data else None
-
-
-class _DeviceBackend:
-    """The pure-Python parse path's DSP (go_mp3_tpu/decoder.py:709-721):
-    a StreamDecoder on `device`."""
-
-    def __init__(self, device: torch.device) -> None:
-        self._sd = StreamDecoder(device=device)
-
-    def reset(self) -> None:
-        self._sd.reset()
-
-    def decode_frames(self, frames: list[ParsedFrame]) -> bytes:
-        for f in frames:
-            self._sd.feed_frame(f)
-        return self._sd.decode_pending(flush=True)
-
-
-class _GoldenBackend(_base._GoldenBackend):
-    """go_mp3_tpu/decoder.py:724-739 with the oracle loaded without JAX;
-    decode_frames is the base class's. `_gd` is the GoldenDecoder, which
-    the base checkpoint and resume read and write."""
-
+class NotSeekableError(MP3Error):
     def __init__(self) -> None:
-        self._gd = golden_decoder_class()()
-
-    def reset(self) -> None:
-        self._gd = golden_decoder_class()()
+        super().__init__("mp3: seek not supported on non-seekable source")
 
 
-class Decoder(_base.Decoder):
+def _device_state(state) -> tuple:
+    store, v_fifo = state_to_numpy(state)
+    return ("device", store[0], v_fifo[0])
+
+
+class Decoder:
     """A decoded MP3 stream whose DSP runs on `device` (None means CUDA,
     and raises where there is none; "cpu" runs the plain chain). `device`
-    is not used by backend="exact" or backend="golden"."""
+    is not used by backend="exact" or backend="golden".
+
+    Not safe for concurrent use; wrap with a lock if shared across
+    threads."""
 
     def __init__(
         self,
@@ -164,39 +83,39 @@ class Decoder(_base.Decoder):
         *,
         device: torch.device | str | None = None,
     ):
-        # go_mp3_tpu/decoder.py:57-117; the base __init__ cannot be called,
-        # since it builds JAX backends
+        """use_native: parse with the C++ host parser. None = auto (on when
+        available)."""
         if backend not in ("device", "exact", "golden"):
             raise MP3Error(f"mp3: unknown DSP backend {backend!r}")
         self._device = resolve_device(device) if backend == "device" else None
         if isinstance(reader, (bytes, bytearray)):
             reader = io.BytesIO(reader)
-        self._native = None
+        self._native: _NativeStream | None = None
         if use_native is not False and backend != "golden":
-            if backend == "device":
-                self._native = _maybe_native_stream(reader, self._device)
-            else:  # go_mp3_tpu's exact streams are JAX-free
-                self._native = _base._maybe_native_stream(reader, dsp="exact")
+            self._native = _maybe_native_stream(reader, backend, self._device)
             if self._native is None and (use_native is True or backend == "exact"):
                 raise MP3Error("mp3: native parser unavailable for this source")
         self._source = Source(reader)
         self._frame_reader = FrameReader()
         self._backend_name = backend
         self._readahead = max(1, readahead_frames)
-        if backend == "golden":  # always the pure-Python parse, as in JAX's
+        if backend == "golden":  # always the pure-Python parse
             self._dsp = _GoldenBackend()
-        elif self._native is None and backend == "device":
+        elif self._native is None:
             self._dsp = _DeviceBackend(self._device)
-        else:  # the native streams decode; nothing to build here
-            self._dsp = _base._NullBackend()
+        else:  # the native stream decodes; nothing to build here
+            self._dsp = _NullBackend()
         self._buf = bytearray()
-        self._pos = 0
-        self._length = _base.INVALID_LENGTH
+        self._pos = 0  # decoded-byte position
+        self._length = INVALID_LENGTH
         self._frame_starts: list[int] = []
         self._bytes_per_frame = 0
         self._sample_rate = 0
-        self._have_frame = False
-        self._at_end = False
+        self._have_frame = False  # a previous frame exists (reservoir warm)
+        self._at_end = False  # set by a seek at/past the end of the stream
+        # Seek warm-up geometry, refined from the first frame's header
+        # (_set_warmup_params). Defaults are the safe maxima: 38 = 4 header
+        # + 2 CRC + 32 side info; 511 = the 9-bit MPEG-1 main_data_begin.
         self._frame_overhead = 38
         self._mdb_window = 511
 
@@ -226,13 +145,151 @@ class Decoder(_base.Decoder):
     def device(self) -> torch.device | None:
         return self._device
 
+    # -- decode-ahead ----------------------------------------------------------
+    def _read_one_frame(self) -> ParsedFrame | None:
+        """The next frame; None at the end of the audio (EOF, trailing junk)."""
+        try:
+            f = self._frame_reader.read(self._source, self._source.pos)
+        except (EOFError_, UnexpectedEOFError, SyncSearchLimitError):
+            return None
+        if not self._have_frame:
+            self._sample_rate = f.header.sampling_frequency_value()
+            self._set_warmup_params(f.header)
+            self._have_frame = True
+        return f
+
+    def _set_warmup_params(self, header: FrameHeader) -> None:
+        """Seek warm-up geometry from the first frame's header. The overhead
+        always budgets the 2 CRC bytes (it only deepens the warm-up); the
+        backreference window is 255 for MPEG-2, 511 for MPEG-1."""
+        self._frame_overhead = 4 + 2 + header.side_info_size
+        self._mdb_window = 255 if header.low_sampling_frequency else 511
+
+    def _read_frames(self, n: int) -> bool:
+        """Parse and decode up to n frames of the pure-Python path into the
+        buffer; False if there was none."""
+        frames = []
+        for _ in range(n):
+            f = self._read_one_frame()
+            if f is None:
+                break
+            frames.append(f)
+        if not frames:
+            return False
+        self._buf += self._dsp.decode_frames(frames)
+        return True
+
+    def _decode_more(self) -> bool:
+        if self._native is None:
+            return self._read_frames(self._readahead)
+        pcm = self._native.decode_more()
+        if pcm is None:
+            return False
+        self._buf += pcm
+        return True
+
+    def _decode_n_frames(self, n: int) -> bool:
+        if self._native is None:
+            return self._read_frames(n)
+        pcm = self._native.decode_frames(n, self._bytes_per_frame)
+        if pcm is None:
+            return False
+        self._buf += pcm
+        return True
+
+    # -- io.Reader -------------------------------------------------------------
+    def read(self, n: int = -1) -> bytes:
+        """Up to n bytes of PCM (all that remain if n < 0); b'' at the end."""
+        if n is None or n < 0:
+            chunks = []
+            while c := self.read(1 << 20):
+                chunks.append(c)
+            return b"".join(chunks)
+        while len(self._buf) < n:
+            if self._at_end or not self._decode_more():
+                break
+        take = min(n, len(self._buf))
+        out = bytes(self._buf[:take])
+        del self._buf[:take]
+        self._pos += take
+        return out
+
+    def read_all(self) -> bytes:
+        return self.read(-1)
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    # -- io.Seeker -------------------------------------------------------------
+    def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
+        """Byte-accurate seek in the decoded PCM stream. Samples are 4-byte
+        aligned; seek to multiples of 4 to stay on sample boundaries."""
+        if offset == 0 and whence == io.SEEK_CUR:
+            return self._pos
+        if self._length == INVALID_LENGTH:
+            raise NotSeekableError()
+        if whence == io.SEEK_SET:
+            npos = offset
+        elif whence == io.SEEK_CUR:
+            npos = self._pos + offset
+        elif whence == io.SEEK_END:
+            npos = self._length + offset
+        else:
+            raise MP3Error("mp3: invalid whence")
+
+        self._pos = max(npos, 0)
+        self._buf.clear()
+        self._frame_reader.reset()
+        self._dsp.reset()
+        if self._native is not None:
+            self._native.reset_state()
+        self._have_frame = False
+        if self._pos >= self._length:  # at or past the end: reads return b""
+            self._at_end = True
+            return npos
+        self._at_end = False
+
+        f = self._pos // self._bytes_per_frame
+        k = self._warmup_depth(f)
+        self._restart_at(self._frame_starts[f - k])
+        if not self._decode_n_frames(k + 1):
+            return npos
+        del self._buf[: k * self._bytes_per_frame + self._pos % self._bytes_per_frame]
+        return npos
+
+    def _warmup_depth(self, f: int) -> int:
+        """How many frames before target frame f to decode and discard so
+        the seek lands bit-identical to a linear decode. Frame f's PCM
+        depends on frames f-1 (IMDCT overlap, polyphase FIFO) and f-2 (the
+        overlap term inside f-1's FIFO rows); both need exact spectra, so
+        the warm frames before f-2 must cover f-2's backreference window:
+        their main-data bytes must reach the stream's main_data_begin
+        maximum. Walks to frame 0 on pathological low-bitrate streams."""
+        if f < 2:
+            return f  # decode from frame 0
+        need, ov, k = self._mdb_window, self._frame_overhead, 2
+        while (
+            f - k > 0
+            and self._frame_starts[f - 2] - self._frame_starts[f - k]
+            < need + ov * (k - 2)
+        ):
+            k += 1
+        return k
+
+    def _restart_at(self, byte_offset: int) -> None:
+        if self._native is not None:
+            self._native.restart(byte_offset)
+        else:
+            self._source.seek(byte_offset)
+
+    # -- checkpoint / resume ---------------------------------------------------
     def checkpoint(self) -> dict:
-        """As go_mp3_tpu.Decoder.checkpoint, with the same keys on each
-        path. The device state travels as numpy [2,32,18] / [2,16,64] f32,
-        so a checkpoint taken here resumes on either package's device
-        backend, on the same parse path."""
-        if self._backend_name != "device":
-            return super().checkpoint()
+        """The full decode state for a sample-exact resume on a Decoder over
+        the same stream and backend: plain bytes and numpy values (the
+        device state as [2,32,18] / [2,16,64] float32, so a checkpoint of
+        either package's device backend resumes on the other's)."""
         ck: dict = {
             "pos": self._pos,
             "buf": bytes(self._buf),
@@ -242,37 +299,323 @@ class Decoder(_base.Decoder):
         if self._native is not None:
             ck["parser_offset"] = self._native._parser.tell()
             ck["reservoir"] = self._native._parser.get_reservoir()
-            state = self._native._state
-        else:
-            prev = self._frame_reader.prev_bits
-            ck["reservoir"] = prev.vec if prev is not None else b""
-            ck["source_pos"] = self._source.pos
-            ck["have_frame"] = self._have_frame
-            state = self._dsp._sd.state
-        store, v_fifo = state_to_numpy(state)
-        ck["dsp"] = ("device", store[0], v_fifo[0])
+            ck["dsp"] = self._native.dsp_state()
+            return ck
+        prev = self._frame_reader.prev_bits
+        ck["reservoir"] = prev.vec if prev is not None else b""
+        ck["source_pos"] = self._source.pos
+        ck["have_frame"] = self._have_frame
+        ck["dsp"] = self._dsp.state()
         return ck
 
+    def checkpoint_bytes(self) -> bytes:
+        """checkpoint() in a stable wire format (utils.state)."""
+        return checkpoint_to_bytes(self.checkpoint())
+
+    def resume_bytes(self, data: bytes) -> None:
+        """Restore a checkpoint_bytes() snapshot (same stream, same backend)."""
+        self.resume(checkpoint_from_bytes(data))
+
     def resume(self, ck: dict) -> None:
-        if self._backend_name != "device":
-            return super().resume(ck)
-        if ck["backend"] != self._backend_name or ck["dsp"][0] != "device":
+        """Restore a checkpoint() snapshot (same stream, same backend)."""
+        if ck["backend"] != self._backend_name:
             raise MP3Error("mp3: checkpoint backend mismatch")
         self._pos = ck["pos"]
         self._buf = bytearray(ck["buf"])
         self._at_end = ck["at_end"]
         _, store, v_fifo = ck["dsp"]
-        state = state_from_numpy(
-            np.asarray(store)[None], np.asarray(v_fifo)[None], self._device
-        )
         if self._native is not None:
             self._native.restart(ck["parser_offset"])
             self._native._parser.set_reservoir(ck["reservoir"])
-            self._native._state = state
+            self._native.set_dsp_state(store, v_fifo)
             return
         self._source.seek(ck["source_pos"])
         self._frame_reader.prev_bits = (
             BitReader(ck["reservoir"]) if ck["reservoir"] else None
         )
         self._have_frame = ck["have_frame"]
-        self._dsp._sd.state = state
+        self._dsp.set_state(store, v_fifo)
+
+    # -- metadata / navigation -------------------------------------------------
+    def _ensure_frame_starts_and_length(self) -> None:
+        """Index pass over the whole file, headers only."""
+        if self._length != INVALID_LENGTH or not self._source.seekable():
+            return
+        pos = self._source.seek(0, io.SEEK_CUR)
+        self._source.rewind()
+        self._source.skip_tags()
+        total = 0
+        while True:
+            try:
+                h, start = read_header(self._source, self._source.pos)
+            except (EOFError_, UnexpectedEOFError, SyncSearchLimitError):
+                break
+            self._frame_starts.append(start)
+            self._bytes_per_frame = h.bytes_per_frame
+            total += self._bytes_per_frame
+            self._source.seek(h.frame_size() - 4, io.SEEK_CUR)
+        self._length = total
+        self._source.seek(pos, io.SEEK_SET)
+
+    def sample_rate(self) -> int:
+        """Sample rate in Hz, from the first frame."""
+        return self._sample_rate
+
+    def length(self) -> int:
+        """Total decoded size in bytes, or -1 if not seekable."""
+        return self._length
+
+    def bytes_per_frame(self) -> int:
+        return self._bytes_per_frame
+
+    def duration(self) -> float:
+        """Total duration in seconds, or -1.0 if unknown."""
+        if self._length == INVALID_LENGTH:
+            return -1.0
+        return self._length / (self._sample_rate * 4)
+
+    def position(self) -> float:
+        """Current position in seconds."""
+        return self._pos / (self._sample_rate * 4)
+
+    def tell(self) -> int:
+        return self._pos
+
+    def remaining(self) -> float:
+        d = self.duration()
+        return -1.0 if d < 0 else d - self.position()
+
+    def progress(self) -> float:
+        if self._length == INVALID_LENGTH:
+            return -1.0
+        return self._pos / self._length if self._length else 0.0
+
+    def sample_position(self) -> int:
+        return self._pos // 4
+
+    def sample_count(self) -> int:
+        return -1 if self._length == INVALID_LENGTH else self._length // 4
+
+    def seek_to_sample(self, sample: int) -> None:
+        if self._length == INVALID_LENGTH:
+            raise NotSeekableError()
+        self.seek(min(max(sample, 0), self.sample_count()) * 4, io.SEEK_SET)
+
+    def skip(self, delta_seconds: float) -> None:
+        self.seek_to_time(self.position() + delta_seconds)
+
+    def seek_to_time(self, t: float) -> None:
+        """Seek to an absolute time in seconds, clamped and 4-byte aligned."""
+        if self._length == INVALID_LENGTH:
+            raise NotSeekableError()
+        t = min(max(t, 0.0), self.duration())
+        self.seek(int(t * self._sample_rate * 4) & ~3, io.SEEK_SET)
+
+
+def _maybe_native_stream(reader, dsp: str, device: torch.device | None):
+    """The native path: the whole-buffer parse for bytes and seekable
+    sources (length and seeking), the streaming parser for the others
+    (bounded memory, no length); None where the native library is missing
+    or a seekable source cannot be read whole."""
+    if not native.available():
+        return None
+    if isinstance(reader, io.BytesIO):
+        data = reader.getvalue()[reader.tell():]
+    else:
+        try:
+            seekable = bool(reader.seekable())
+        except (AttributeError, OSError, ValueError):
+            seekable = False
+        if not seekable:
+            return _StreamingNativeStream(reader, dsp, device)
+        try:
+            start = reader.tell()
+            data = reader.read()
+            reader.seek(start)
+        except (OSError, ValueError):
+            return None
+    return _NativeStream(data, dsp, device) if data else None
+
+
+class _NativeStream:
+    """C++ parse -> the port's chunk decode on `device` (dsp "device") or
+    the exact C++ DSP (dsp "exact"), with the Decoder's frame-oriented
+    contract: decode-ahead, restart at a byte offset for seeks."""
+
+    CHUNK = 128  # granules per device call
+
+    def __init__(self, data: bytes, dsp: str, device: torch.device | None):
+        self._data = data
+        self._parser = native.NativeParser(data)
+        self._init_dsp(dsp, device)
+
+    def _init_dsp(self, dsp: str, device: torch.device | None) -> None:
+        self._dsp_kind = dsp
+        self._device = device
+        self._cpu_dsp = native.NativeDsp() if dsp == "exact" else None
+        self.reset_state()
+
+    def sample_rate(self) -> int:
+        return self._parser.sample_rate
+
+    def index(self):
+        return native.index_stream(self._data)
+
+    def reset_state(self) -> None:
+        if self._cpu_dsp is not None:
+            self._cpu_dsp.reset()
+        else:
+            self._state = init_state(1, self._device)
+
+    def dsp_state(self) -> tuple:
+        if self._cpu_dsp is not None:
+            return ("exact", *self._cpu_dsp.get_state())
+        return _device_state(self._state)
+
+    def set_dsp_state(self, store, v_fifo) -> None:
+        if self._cpu_dsp is not None:
+            self._cpu_dsp.set_state(store, v_fifo)
+        else:
+            self._state = state_from_numpy(
+                np.asarray(store)[None], np.asarray(v_fifo)[None], self._device
+            )
+
+    def restart(self, byte_offset: int) -> None:
+        self._parser.close()
+        self._parser = native.NativeParser(self._data, byte_offset)
+
+    def _parse(self, spectra, sfl, sfs, meta) -> int:
+        return self._parser.parse_into(spectra, sfl, sfs, meta)
+
+    def _parse_packed(self, spectra, side) -> int:
+        return self._parser.parse_packed_into(spectra, side)
+
+    def _decode_granules(self, want: int) -> bytes | None:
+        want = min(want, self.CHUNK)
+        if self._cpu_dsp is not None:
+            spectra = np.zeros((want, 2, 576), np.int16)
+            sfl = np.zeros((want, 2, 22), np.int32)
+            sfs = np.zeros((want, 2, 39), np.int32)
+            meta = np.zeros((want, native.META_WIDTH), np.int32)
+            n = self._parse(spectra, sfl, sfs, meta)
+            if n == 0:
+                return None
+            return self._cpu_dsp.decode(spectra[:n], sfl[:n], sfs[:n], meta[:n]).tobytes()
+
+        # the packed int16 interface; rows past n stay zero and `valid`
+        # masks them
+        spectra = np.zeros((self.CHUNK, 1152), np.int16)
+        side = np.zeros((self.CHUNK, SIDE_WIDTH), np.int16)
+        n = self._parse_packed(spectra[:want], side[:want])
+        if n == 0:
+            return None
+        dev = self._device
+        packed = (
+            torch.from_numpy(spectra)[None].to(dev),
+            torch.from_numpy(side)[None].to(dev),
+        )
+        valid = torch.tensor([n], dtype=torch.int32, device=dev)
+        pcm, self._state = decode_chunk(packed, self._state, valid)
+        return pcm[0, : n * SAMPLES_PER_GR].cpu().numpy().tobytes()
+
+    def decode_more(self) -> bytes | None:
+        return self._decode_granules(self.CHUNK)
+
+    def decode_frames(self, n_frames: int, bytes_per_frame: int) -> bytes | None:
+        gpf = max(1, bytes_per_frame // (576 * 4))
+        # the native parse loop keeps 2 output slots free per iteration (a
+        # frame may yield 2 granules), so a capacity of N gives only N-1
+        # granules of single-granule (MPEG-2) frames: pad the request; an
+        # extra granule stays buffered for later reads
+        return self._decode_granules(n_frames * gpf + (1 if gpf == 1 else 0))
+
+
+class _StreamingNativeStream(_NativeStream):
+    """The native path for sources that cannot be read whole (pipes,
+    sockets, unbounded streams): the C++ parser owns a compacting buffer
+    fed on demand, so memory stays bounded. No length, no seek."""
+
+    FEED = 1 << 16  # bytes per reader.read()
+
+    def __init__(self, reader, dsp: str, device: torch.device | None):
+        self._reader = reader
+        self._data = b""
+        self._parser = native.StreamingNativeParser()
+        self._init_dsp(dsp, device)
+
+    def _feed_more(self) -> bool:
+        if self._parser.eof:
+            return False
+        chunk = self._reader.read(self.FEED)
+        self._parser.feed(chunk or b"", eof=not chunk)
+        return True
+
+    def _parse(self, spectra, sfl, sfs, meta) -> int:
+        while (n := self._parser.parse_into(spectra, sfl, sfs, meta)) == 0:
+            if not self._feed_more():
+                return 0
+        return n
+
+    def _parse_packed(self, spectra, side) -> int:
+        while (n := self._parser.parse_packed_into(spectra, side)) == 0:
+            if not self._feed_more():
+                return 0
+        return n
+
+    def index(self):
+        return None  # not materializable: no length
+
+    def restart(self, byte_offset: int) -> None:
+        raise NotSeekableError()
+
+
+class _NullBackend:
+    """The frame backend of the native paths, which decode in the stream."""
+
+    def reset(self) -> None:
+        pass
+
+
+class _DeviceBackend:
+    """The pure-Python parse path's DSP: a StreamDecoder on `device`."""
+
+    def __init__(self, device: torch.device) -> None:
+        self._sd = StreamDecoder(device=device)
+
+    def reset(self) -> None:
+        self._sd.reset()
+
+    def decode_frames(self, frames: list[ParsedFrame]) -> bytes:
+        for f in frames:
+            self._sd.feed_frame(f)
+        return self._sd.decode_pending(flush=True)
+
+    def state(self) -> tuple:
+        return _device_state(self._sd.state)
+
+    def set_state(self, store, v_fifo) -> None:
+        self._sd.state = state_from_numpy(
+            np.asarray(store)[None], np.asarray(v_fifo)[None], self._sd.device
+        )
+
+
+class _GoldenBackend:
+    """The numpy float64 oracle, frame by frame."""
+
+    def __init__(self) -> None:
+        self._gd = GoldenDecoder()
+
+    def reset(self) -> None:
+        self._gd = GoldenDecoder()
+
+    def decode_frames(self, frames: list[ParsedFrame]) -> bytes:
+        return b"".join(
+            self._gd.decode_frame(f.header, f.side_info, f.main_data) for f in frames
+        )
+
+    def state(self) -> tuple:
+        return ("golden", self._gd.store.copy(), self._gd.v_fifo.copy())
+
+    def set_state(self, store, v_fifo) -> None:
+        self._gd.store = store.copy()
+        self._gd.v_fifo = v_fifo.copy()

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from go_mp3_tpu.native import lib as native
+from ..native import lib as native
 
 from ..ops.granule import GranuleBatch, granule_batch_from_numpy
 

@@ -15,8 +15,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from go_mp3_tpu.bitstream.parser import ParsedFrame
-from go_mp3_tpu.consts import SAMPLES_PER_GR
+from ..bitstream.parser import ParsedFrame
+from ..consts import SAMPLES_PER_GR
 
 from ..device import resolve_device
 from ..ops import tables as T

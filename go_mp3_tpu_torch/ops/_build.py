@@ -107,9 +107,9 @@ def load():
         ("gomp3_requant_stereo_init", [i] + [p] * 8),
         ("gomp3_requant_stereo", [i, i, pp, p, p, i, i, p]),
         ("gomp3_hybrid_init", [i] + [p] * 5),
-        ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, p]),
+        ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, i, i, p]),
         ("gomp3_synth_init", [i, p, p]),
-        ("gomp3_synth", [i, p, p, p, p, p, p, p, i, i, p]),
+        ("gomp3_synth", [i, p, p, p, p, p, p, i, i, i, p]),
         ("gomp3_unpack_fused", [i, p, p, p, p, i, i, i, i, p]),
     ):
         fn = getattr(lib, name)

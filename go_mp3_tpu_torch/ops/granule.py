@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from go_mp3_tpu.consts import HEAD_LINES, SAMPLES_PER_GR, SIDE8_WIDTH, SIDE_WIDTH
+from ..consts import HEAD_LINES, SAMPLES_PER_GR, SIDE8_WIDTH, SIDE_WIDTH
 
 from . import tables as T
 

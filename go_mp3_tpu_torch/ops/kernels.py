@@ -13,6 +13,7 @@ in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
   requant_stereo  K1  csrc/requant_stereo.cu  load, requantize, stereo
   hybrid          K2  csrc/hybrid.cu          antialias .. freq inversion
   synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
+                                              (fused; v stays on chip)
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
 
 decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk; decode_chunk_fused
@@ -26,7 +27,7 @@ import ctypes
 import numpy as np
 import torch
 
-from go_mp3_tpu.consts import HEAD_WIDTH, SIDE8_WIDTH, SIDE_WIDTH, SP8_TAIL_WIDTH
+from ..consts import HEAD_WIDTH, SIDE8_WIDTH, SIDE_WIDTH, SP8_TAIL_WIDTH
 
 from . import _build
 from . import granule as G
@@ -57,7 +58,7 @@ def _library(device: torch.device):
                   lib.gomp3_requant_stereo_init(idx, *map(ptr, keep)))
         hyb = [T.CS, T.CA, T.COS_N36, T.SHORT_M3, T.IMDCT_WIN]
         _check_rc("hybrid_init", lib.gomp3_hybrid_init(idx, *map(ptr, hyb)))
-        syn = [T.SYNTH_N_WIN, T.SYNTH_DTBL]
+        syn = [np.ascontiguousarray(T.SYNTH_N_WIN.T), T.SYNTH_DTBL]
         _check_rc("synth_init", lib.gomp3_synth_init(idx, *map(ptr, syn)))
         _ready_devices.add(idx)
     return lib, idx
@@ -144,11 +145,39 @@ def requant_stereo(packed, stereo: bool = True):
     return out, ginfo
 
 
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def run_length(units_per_run: int, t_dim: int, want: int) -> int:
+    """Granules per run of K2 and K3: the first of 4, 2, 1 at which the
+    chunk splits into at least `want` units of work (`units_per_run` units
+    for each run of granules). Longer runs share more of each run's extra
+    predecessor granule, and 4 was the fastest for both kernels at
+    64 x 240 on an H100. Neither kernel's result depends on it."""
+    g = 4
+    while g > 1 and units_per_run * -(-t_dim // g) < want:
+        g //= 2
+    return g
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+
+
 def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
            valid: torch.Tensor):
     """K2. x f32 [S,T,2,576], ginfo int32 [S,T], store f32 [S,2,32,18],
     valid int32 [S] (0 <= valid <= T) -> (x18 f32 [S,T,2,32,18], store
-    after valid granules)."""
+    after valid granules). One warp per (stream, channel, run of
+    run_length granules)."""
     dev = x.device
     s_dim, t_dim = x.shape[:2]
     _expect(x, "x", torch.float32, (s_dim, t_dim, 2, 576), dev)
@@ -157,12 +186,23 @@ def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
     _expect(valid, "valid", torch.int32, (s_dim,), dev)
     if not _route(dev):
         return G.hybrid_ref(x, ginfo, store, valid)
+    return _hybrid_launch(x, ginfo, store, valid,
+                          run_length(s_dim * 2, t_dim, 2 * _sm_count(dev)))
+
+
+def _hybrid_launch(x, ginfo, store, valid, g: int):
+    """K2's launch on checked CUDA tensors, `g` granules a warp (any >= 1;
+    no output depends on it)."""
+    dev = x.device
+    s_dim, t_dim = x.shape[:2]
     lib, idx = _library(dev)
+    _check_aligned(x, "x")
+    warps = 4 if s_dim * 2 * -(-t_dim // g) >= 4 * _sm_count(dev) else 1
     x18 = torch.empty((s_dim, t_dim, 2, 32, 18), dtype=torch.float32, device=dev)
     store_out = torch.empty_like(store)
     _check_rc("hybrid", lib.gomp3_hybrid(
         idx, x.data_ptr(), ginfo.data_ptr(), store.data_ptr(), valid.data_ptr(),
-        x18.data_ptr(), store_out.data_ptr(), s_dim, t_dim,
+        x18.data_ptr(), store_out.data_ptr(), s_dim, t_dim, g, warps,
         torch.cuda.current_stream(dev).cuda_stream,
     ))
     hybrid.launches += 1
@@ -173,7 +213,8 @@ def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
           valid: torch.Tensor, out: torch.Tensor | None = None):
     """K3. x18 f32 [S,T,2,32,18], ginfo int32 [S,T], v_fifo f32
     [S,2,16,64], valid int32 [S] -> (pcm int16 [S, T*576, 2], v_fifo
-    after valid granules). `out`, if given, receives the PCM."""
+    after valid granules). `out`, if given, receives the PCM. One block
+    per (stream, run of run_length granules)."""
     dev = x18.device
     s_dim, t_dim = x18.shape[:2]
     _expect(x18, "x18", torch.float32, (s_dim, t_dim, 2, 32, 18), dev)
@@ -185,14 +226,23 @@ def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
     if not _route(dev):
         pcm, fifo = G.synth_ref(x18, ginfo, v_fifo, valid)
         return (pcm if out is None else out.copy_(pcm)), fifo
+    return _synth_launch(x18, ginfo, v_fifo, valid, out,
+                         run_length(s_dim, t_dim, 2 * _sm_count(dev)))
+
+
+def _synth_launch(x18, ginfo, v_fifo, valid, out, g: int):
+    """K3's launch on checked CUDA tensors, `g` granules a block (1-4; no
+    output depends on it)."""
+    dev = x18.device
+    s_dim, t_dim = x18.shape[:2]
     lib, idx = _library(dev)
-    vs = torch.empty((s_dim, 2, t_dim * 18, 64), dtype=torch.float32, device=dev)
+    _check_aligned(x18, "x18")
     pcm = out if out is not None else torch.empty(
         (s_dim, t_dim * 576, 2), dtype=torch.int16, device=dev)
     fifo_out = torch.empty_like(v_fifo)
     _check_rc("synth", lib.gomp3_synth(
         idx, x18.data_ptr(), ginfo.data_ptr(), v_fifo.data_ptr(), valid.data_ptr(),
-        vs.data_ptr(), pcm.data_ptr(), fifo_out.data_ptr(), s_dim, t_dim,
+        pcm.data_ptr(), fifo_out.data_ptr(), s_dim, t_dim, g,
         torch.cuda.current_stream(dev).cuda_stream,
     ))
     synth.launches += 1

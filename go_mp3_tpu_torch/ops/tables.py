@@ -2,9 +2,8 @@
 
 The same ISO/IEC 11172-3 data as go_mp3_tpu/ops/tables.py, computed by the
 same numpy expressions so every array is bit-identical to its counterpart
-there (tests/test_torch_tables.py holds them equal). That module cannot be
-imported here: importing anything under go_mp3_tpu.ops runs its
-__init__, which imports the JAX chain.
+there (tests/test_torch_tables.py holds them equal). The synthesis window's
+numerators are the golden oracle's copy (golden/synth_window_data.py).
 
 Only what the port's chain needs is built: the requantize power tables, the
 per-line band maps (indexed
@@ -19,24 +18,10 @@ Block class: 0 = long, 1 = short (non-mixed), 2 = mixed.
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 
-import go_mp3_tpu
-from go_mp3_tpu.consts import SAMPLES_PER_GR, SF_BAND_INDICES
-
-
-def _load_synth_numerators() -> tuple:
-    """SYNTH_D_NUMERATORS from go_mp3_tpu/ops/synth_window_data.py, loaded
-    by file path (the file has no imports) so the JAX ops package is never
-    imported."""
-    path = Path(go_mp3_tpu.__file__).parent / "ops" / "synth_window_data.py"
-    spec = importlib.util.spec_from_file_location("_gomp3_synth_window", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.SYNTH_D_NUMERATORS
+from ..consts import SAMPLES_PER_GR, SF_BAND_INDICES
+from ..golden.synth_window_data import SYNTH_D_NUMERATORS
 
 
 CLASS_LONG = 0
@@ -143,7 +128,7 @@ SYNTH_N_WIN = np.cos((16 + _i64) * (2 * _j32 + 1) * (np.pi / 64.0)).astype(
 )  # [64, 32]
 
 SYNTH_DTBL = (
-    np.array(_load_synth_numerators(), dtype=np.float64) / 65536.0
+    np.array(SYNTH_D_NUMERATORS, dtype=np.float64) / 65536.0
 ).astype(np.float32)  # [512]
 
 FREQ_INV_SIGN = np.ones((32, 18), dtype=np.float32)

@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from go_mp3_tpu.consts import HEAD_LINES, HEAD_WIDTH, SIDE8_WIDTH
-from go_mp3_tpu.native.lib import pack_fused_tail
+from ..consts import HEAD_LINES, HEAD_WIDTH, SIDE8_WIDTH
+from ..native.lib import pack_fused_tail
 
 TAIL_LINES_FULL = 512  # per-channel tail lines: 576 - HEAD_LINES
 

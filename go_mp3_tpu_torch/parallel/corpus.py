@@ -46,10 +46,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from go_mp3_tpu.bitstream import Source, read_header
-from go_mp3_tpu.bitstream.frameheader import Mode
-from go_mp3_tpu.bitstream.parser import FrameReader
-from go_mp3_tpu.consts import (
+from ..bitstream import Source, read_header
+from ..bitstream.frameheader import Mode
+from ..bitstream.parser import FrameReader
+from ..consts import (
     HEAD_WIDTH,
     SAMPLES_PER_GR,
     SIDE8_WIDTH,
@@ -59,10 +59,9 @@ from go_mp3_tpu.consts import (
     SyncSearchLimitError,
     UnexpectedEOFError,
 )
-from go_mp3_tpu.native.lib import BatchParser, NativeParser
-
 from ..device import resolve_device
 from ..models.pipeline import GranuleMeta, granules_from_frame, pack_granule_batch
+from ..native.lib import BatchParser, NativeParser
 from ..ops.granule import GranuleBatch, batch_to, init_state
 from ..ops.kernels import decode_chunk
 from ..ops.wire import (

@@ -27,7 +27,7 @@ import time
 
 import torch
 
-from go_mp3_tpu.consts import SAMPLES_PER_GR
+from ..consts import SAMPLES_PER_GR
 
 from ..ops import kernels as K
 from ..ops.granule import init_state

@@ -1,7 +1,8 @@
 """What the port is held against, reached without jax.
 
- - the exact backend of go_mp3_tpu: the C++ parser plus the C++ DSP that
-   replicates the reference decoder's float32 operation order;
+ - the exact backend (the port's own Decoder(backend="exact")): the C++
+   parser plus the C++ DSP that replicates the reference decoder's float32
+   operation order, with no device;
  - the ISO/IEC 11172-4 compliance measure between two s16le PCM streams
    (thresholds as in tools/compliance.py and conformance/REPORT.json);
  - the C++ stream index (frame starts, bytes per frame, sample rate), which
@@ -12,13 +13,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from go_mp3_tpu import Decoder as _Decoder
+from .decoder import Decoder
 
 # native_available(): the C++ parser and exact DSP (libmp3parse.so, built
 # with g++ at first use) are loaded; index_stream(data): (frame start
 # offsets, bytes per frame, sample rate) of a stream
-from go_mp3_tpu.native.lib import available as native_available  # noqa: F401
-from go_mp3_tpu.native.lib import index_stream  # noqa: F401
+from .native.lib import available as native_available  # noqa: F401
+from .native.lib import index_stream  # noqa: F401
 
 FULL_RMS = 0.289  # LSB
 FULL_MAXDIFF = 2  # LSB
@@ -35,9 +36,9 @@ def iso_metrics(a: bytes, b: bytes) -> tuple[float, int]:
     return float(np.sqrt(np.mean(d.astype(np.float64) ** 2))), int(np.abs(d).max())
 
 
-def exact_decoder(data: bytes) -> _Decoder:
-    """A go_mp3_tpu Decoder on the exact backend (no accelerator)."""
-    return _Decoder(data, backend="exact")
+def exact_decoder(data: bytes) -> Decoder:
+    """A Decoder on the exact backend (no device)."""
+    return Decoder(data, backend="exact")
 
 
 def decode_exact(data: bytes) -> bytes:

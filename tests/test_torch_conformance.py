@@ -1,11 +1,13 @@
 """The port's golden backend and conformance bundle (go_mp3_tpu_torch/
-golden.py, go_mp3_tpu_torch/conformance.py) against go_mp3_tpu's golden
+golden/, go_mp3_tpu_torch/conformance.py) against go_mp3_tpu's golden
 backend and conformance/REPORT.json, on the CPU.
 
 Golden PCM is the same numpy oracle on the same parsed frames, so it must
 be byte-identical to go_mp3_tpu's and to REPORT.json's frozen SHA-256."""
 
+import ast
 import hashlib
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -16,10 +18,11 @@ torch = pytest.importorskip("torch")
 
 from go_mp3_tpu import Decoder as JaxDecoder  # noqa: E402
 from go_mp3_tpu import GaplessDecoder as JaxGapless  # noqa: E402
-from go_mp3_tpu.bitstream.frameheader import FrameHeader  # noqa: E402
-from go_mp3_tpu.ops.reference_dsp import GoldenDecoder as JaxGoldenDecoder  # noqa: E402
+from go_mp3_tpu.ops import reference_dsp as jax_reference_dsp  # noqa: E402
 from go_mp3_tpu_torch import Decoder, GaplessDecoder, conformance  # noqa: E402
-from go_mp3_tpu_torch.golden import golden_decoder_class  # noqa: E402
+from go_mp3_tpu_torch.bitstream.frameheader import FrameHeader  # noqa: E402
+from go_mp3_tpu_torch.golden import GoldenDecoder  # noqa: E402
+from go_mp3_tpu_torch.golden import reference_dsp  # noqa: E402
 
 CONF = Path(__file__).resolve().parent.parent / "conformance"
 REPORT = json.loads((CONF / "REPORT.json").read_text())
@@ -51,15 +54,25 @@ def test_golden_seek_and_gapless_equal_jax(name):
             == JaxGapless(data, backend="golden").read_all())
 
 
+def _code_without_docstrings(module) -> str:
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body.pop(0)
+    return ast.dump(tree)
+
+
 def test_golden_loader_is_the_same_oracle_code():
-    """The loaded class is reference_dsp.GoldenDecoder's code, not a copy,
-    and its bitstream classes are go_mp3_tpu's."""
-    cls = golden_decoder_class()
-    assert cls is golden_decoder_class()  # loaded once per process
-    assert cls.__module__ == "_go_mp3_tpu_golden.ops.reference_dsp"
-    assert cls.decode_frame.__code__.co_filename == \
-        JaxGoldenDecoder.decode_frame.__code__.co_filename
-    assert sys.modules[cls.__module__].FrameHeader is FrameHeader
+    """The port's oracle is the JAX package's reference_dsp, statement for
+    statement (only docstrings may differ), and its bitstream classes are
+    the port's own."""
+    assert GoldenDecoder.__module__ == "go_mp3_tpu_torch.golden.reference_dsp"
+    assert _code_without_docstrings(reference_dsp) == \
+        _code_without_docstrings(jax_reference_dsp)
+    assert sys.modules[GoldenDecoder.__module__].FrameHeader is FrameHeader
 
 
 @pytest.mark.parametrize("name", NAMES)

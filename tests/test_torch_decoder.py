@@ -18,8 +18,7 @@ import go_mp3_tpu  # noqa: E402
 import go_mp3_tpu_torch  # noqa: E402
 from go_mp3_tpu import Decoder as JaxDecoder  # noqa: E402
 from go_mp3_tpu import GaplessDecoder as JaxGapless  # noqa: E402
-from go_mp3_tpu.consts import MP3Error  # noqa: E402
-from go_mp3_tpu_torch import Decoder, GaplessDecoder, NotSeekableError  # noqa: E402
+from go_mp3_tpu_torch import Decoder, GaplessDecoder, MP3Error, NotSeekableError  # noqa: E402
 from go_mp3_tpu_torch import reference  # noqa: E402
 from go_mp3_tpu_torch.reference import FULL_MAXDIFF, FULL_RMS, iso_metrics  # noqa: E402
 
@@ -177,11 +176,20 @@ def test_golden_and_unknown_backends_raise():
 
 
 def test_exports_jax_public_names():
+    """Every public name of go_mp3_tpu, as the port's own object: the
+    errors keep their hierarchy and lameinfo its functions."""
     for name in go_mp3_tpu.__all__:
         assert name in go_mp3_tpu_torch.__all__, name
         assert hasattr(go_mp3_tpu_torch, name), name
-    assert go_mp3_tpu_torch.NotSeekableError is go_mp3_tpu.NotSeekableError
-    assert go_mp3_tpu_torch.lameinfo is go_mp3_tpu.lameinfo
+    for name in ("MP3Error", "NotSeekableError", "SyncSearchLimitError",
+                 "UnexpectedEOFError"):
+        port, ref = getattr(go_mp3_tpu_torch, name), getattr(go_mp3_tpu, name)
+        assert port is not ref and port.__module__.startswith("go_mp3_tpu_torch.")
+        assert issubclass(port, go_mp3_tpu_torch.MP3Error), name
+        assert [c.__name__ for c in port.__mro__] == [c.__name__ for c in ref.__mro__]
+    assert go_mp3_tpu_torch.lameinfo.__name__ == "go_mp3_tpu_torch.lameinfo"
+    public = {n for n in vars(go_mp3_tpu.lameinfo) if not n.startswith("_")}
+    assert public <= set(vars(go_mp3_tpu_torch.lameinfo))
 
 
 def test_python_parse_path_equals_native(data):

@@ -1,7 +1,12 @@
-"""The port stays JAX-free, imports without a CUDA toolchain, and routes
-CPU tensors to the plain versions without touching the kernel library."""
+"""The port stands alone: it imports nothing of jax and nothing of the JAX
+package (no module, no file, no shared library of go_mp3_tpu/), imports
+without a CUDA toolchain, and routes CPU tensors to the plain versions
+without touching the kernel library."""
 
+import ast
+import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -18,14 +23,30 @@ import torch_synthetic as syn  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "go_mp3_tpu_torch",
+    "go_mp3_tpu_torch.bitstream",
+    "go_mp3_tpu_torch.bitstream.bits",
+    "go_mp3_tpu_torch.bitstream.frameheader",
+    "go_mp3_tpu_torch.bitstream.huffman",
+    "go_mp3_tpu_torch.bitstream.huffman_tables",
+    "go_mp3_tpu_torch.bitstream.maindata",
+    "go_mp3_tpu_torch.bitstream.parser",
+    "go_mp3_tpu_torch.bitstream.sideinfo",
+    "go_mp3_tpu_torch.bitstream.source",
     "go_mp3_tpu_torch.conformance",
+    "go_mp3_tpu_torch.consts",
     "go_mp3_tpu_torch.decoder",
     "go_mp3_tpu_torch.device",
     "go_mp3_tpu_torch.gapless",
     "go_mp3_tpu_torch.golden",
+    "go_mp3_tpu_torch.golden.reference_dsp",
+    "go_mp3_tpu_torch.golden.synth_window_data",
+    "go_mp3_tpu_torch.golden.tables",
+    "go_mp3_tpu_torch.lameinfo",
     "go_mp3_tpu_torch.models",
     "go_mp3_tpu_torch.models.native_pipeline",
     "go_mp3_tpu_torch.models.pipeline",
+    "go_mp3_tpu_torch.native",
+    "go_mp3_tpu_torch.native.lib",
     "go_mp3_tpu_torch.ops",
     "go_mp3_tpu_torch.ops._build",
     "go_mp3_tpu_torch.ops.granule",
@@ -37,6 +58,8 @@ MODULES = [
     "go_mp3_tpu_torch.parallel.mesh",
     "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
+    "go_mp3_tpu_torch.utils",
+    "go_mp3_tpu_torch.utils.state",
 ]
 
 
@@ -59,16 +82,98 @@ def test_every_module_imports_without_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "from go_mp3_tpu_torch.golden import golden_decoder_class\n"
-        "golden_decoder_class()()  # the oracle loaded, as Decoder(backend='golden') does\n"
+        "from go_mp3_tpu_torch.golden import GoldenDecoder\n"
+        "GoldenDecoder()  # the oracle, as Decoder(backend='golden') builds it\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
-        "assert not [m for m in sys.modules if m.startswith(\n"
-        "    ('go_mp3_tpu.ops', 'go_mp3_tpu.models', 'go_mp3_tpu.parallel'))]\n"
         "print('ok')\n"
     )
     proc = _run(code)
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+def test_nothing_of_the_jax_package_is_loaded():
+    """In a fresh process, after every port module, chip_smoke.py's own
+    imports, a native parse and a decode on each backend: no module of
+    go_mp3_tpu, no file under go_mp3_tpu/, and no libmp3parse.so mapped from
+    there; the port's own library is mapped from its build directory."""
+    code = (
+        "import importlib, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "import chip_smoke, torch_synthetic\n"
+        "from go_mp3_tpu_torch import Decoder, GaplessDecoder, reference\n"
+        "data = open('conformance/synthetic_escape.mp3', 'rb').read()\n"
+        "reference.index_stream(data)\n"
+        "for b in ('exact', 'golden'): Decoder(data, backend=b).read_all()\n"
+        "Decoder(data, device='cpu').read_all()\n"
+        "GaplessDecoder(data, device='cpu').read_all()\n"
+        "import json\n"
+        "print(json.dumps({\n"
+        "    'modules': sorted(sys.modules),\n"
+        "    'files': sorted(str(getattr(m, '__file__', None) or '')\n"
+        "                    for m in list(sys.modules.values())),\n"
+        "    'maps': open('/proc/self/maps').read().splitlines()}))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    seen = json.loads(proc.stdout.splitlines()[-1])
+    jax_pkg = ROOT / "go_mp3_tpu"
+    assert not [m for m in seen["modules"]
+                if m == "go_mp3_tpu" or m.startswith("go_mp3_tpu.")]
+    assert not [f for f in seen["files"] if f and Path(f).resolve().is_relative_to(jax_pkg)]
+    libs = {ln.split()[-1] for ln in seen["maps"] if ln.endswith("libmp3parse.so")}
+    assert libs, "the port's C++ parser was not loaded"
+    for lib in libs:
+        assert not Path(lib).resolve().is_relative_to(jax_pkg), lib
+        assert Path(lib).resolve().is_relative_to(ROOT / "build" / "go_mp3_tpu_torch"), lib
+
+
+# A string constant that names a place in the JAX package: a file:line
+# reference in prose or a kernel row's "replaces" (go_mp3_tpu/ops/granule.py:361)
+# is text, anything else could be a path the code builds.
+_FILE_LINE = re.compile(r"^go_mp3_tpu/[\w/]+\.py:\d+$")
+_JAX_PKG = re.compile(r"(^|[/\\\s'\"])go_mp3_tpu($|[/\\.\s'\"])")
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            out.add(id(body[0].value))
+    return out
+
+
+def _sources() -> list:
+    return [ROOT / "chip_smoke.py", *sorted((ROOT / "go_mp3_tpu_torch").rglob("*.py"))]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_and_builds_no_path_into_the_jax_package(path):
+    """chip_smoke.py and every file of the port: no import of go_mp3_tpu
+    (absolute, or relative past the package root), no name go_mp3_tpu, and
+    no string that names the JAX package as a place, other than file:line
+    references."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    depth = len(path.relative_to(ROOT).parts) - 1  # how far "from ..." may climb
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name.split(".")[0] != "go_mp3_tpu", (path, node.lineno)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                assert (node.module or "").split(".")[0] != "go_mp3_tpu", (path, node.lineno)
+            else:
+                assert node.level <= depth, (path, node.lineno)
+        elif isinstance(node, ast.Name):
+            assert node.id != "go_mp3_tpu", (path, node.lineno)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if id(node) in docs or _FILE_LINE.match(node.value):
+                continue
+            assert not _JAX_PKG.search(node.value), (path, node.lineno, node.value)
 
 
 def test_kernels_import_without_nvcc_or_triton(tmp_path):
@@ -140,3 +245,16 @@ def test_build_is_keyed_by_sources():
     assert path.parent.parent == ROOT / "build" / "go_mp3_tpu_torch"
     assert "--use_fast_math" not in _build._FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build._FLAGS
+
+
+@pytest.mark.parametrize("units, t_dim, want, g", [
+    (128, 240, 264, 4),  # K2, 64 streams: runs of 4 already fill an H100
+    (64, 240, 264, 4),  # K3, 64 streams
+    (16, 37, 264, 2),  # 8 streams at T = 37: runs of 4 leave SMs idle
+    (2, 128, 264, 1),  # K2, the Decoder's one stream
+    (2, 1, 264, 1),
+])
+def test_run_length_fills_the_card(units, t_dim, want, g):
+    """K2's and K3's granules per run: the longest run, up to 4, that still
+    gives `want` units of work (two per SM)."""
+    assert kernels.run_length(units, t_dim, want) == g
