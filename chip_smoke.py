@@ -15,15 +15,23 @@ first that fails:
     version on the same seeded synthetic batch (S=64 streams x T=240
     granules, every block class, stereo mode and band variant, ragged valid
     counts including 0), within stated bounds, and timed against it; K1 on
-    each of its three inputs (int8, int16, GranuleBatch), its GranuleBatch
-    route bit-identical to its int16 route on the same granules; K4
-    (the fused-wire unpack) equal to its plain version and to the arrays
-    the wire was built from, stereo and mono, full and capped width, and
-    at an odd T and odd width; then K2 and K3 where tile edges matter
-    (S=64 at T=240 and T=37, S=1 at T=128 and T=1; valid counts of 0, T,
-    and 13-15, at the start of and inside a run), each within the same
-    bounds and bit-identical over every run length (granules a warp or
-    block) the kernels take, and each run length timed at S=64, T=240;
+    each of its four inputs (int8, int16, GranuleBatch, the fused wire),
+    all four bit-identical on the same granules at every tile size (granules
+    a block) the kernel takes, each tile timed, at S=64 x T=240 and the
+    Decoder's S=1 x T=128 (and S=5 x T=37, where the GranuleBatch's bool
+    fields also sit at an odd address); K4 (the fused-wire unpack, the
+    public unpack_fused, one tile size) equal to its plain version and to
+    the arrays the wire was built from, timed at S=64 x T=240 and
+    S=1 x T=128, and K1's wire route within bounds of
+    its plain version and bit-identical to K4 -> K1, stereo and mono, full
+    and capped width, and at an odd T and odd width; then K2 and K3 where
+    tile edges matter (S=64 at T=240 and T=37, S=1 at T=128 and T=1; valid
+    counts of 0, T, and 13-15, at the start of and inside a run), each
+    within the same bounds and bit-identical over every run length
+    (granules a warp or block) the kernels take, and each run length timed
+    at S=64, T=240; a chunk of T=0 through K1 (every input and tile), K2,
+    K3 (every run length), K4, decode_chunk and decode_chunk_fused: empty
+    outputs, and the state returned equal to the state given;
  3. chunk invariance: the same granules decoded as one chunk and split at
     other boundaries, state carried: bit-identical PCM and state; and a
     k = 4 segment of both lane groups replayed twice through the captured
@@ -47,7 +55,9 @@ first that fails:
     (the SHA-256 of the lanes' PCM joined in order is printed);
     each run prints its phase split, widths, wire bytes, graph replays,
     peak device memory, device allocations and the launches of every
-    kernel;
+    kernel (the fused path launches K1 on the wire, and K4 never);
+ 5c. the public unpack_fused (K4) on the corpus's own first chunk of
+    wire rows, one per lane group, equal to the parser's arrays;
  5b. decode_corpus, the pure-Python parse path of a corpus: the same 64
     lanes cut to their first 768 granules (the Python parse and the
     per-granule staging are host-bound), parsed by parse_stream_granules
@@ -71,8 +81,8 @@ first that fails:
 
 Each phase of the main path (4 to 7) starts each run with the launch
 counts at 0 and checks that K1-K3 (and, in 4b and 5b, K1's GranuleBatch
-route; on the fused corpus path K4 and, with drain, the graph) ran; the
-JSON line sums the launches over them.
+route; on the fused corpus path K1's wire route and, with drain, the
+graph; in 5c K4) ran; the JSON line sums the launches over them.
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main path, its error against the plain version, its card
 time and the plain version's (phase 2's shapes), and its bound: the larger
@@ -400,63 +410,260 @@ def phase_tiles(dev) -> None:
             f"K3 runs of {K3_RUNS} granules")
 
 
-def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
-    """K1, K2, K3 against their plain versions on the same inputs."""
+WIRE_LINES = 512  # the tail width of phase 2's wire rows
+
+
+def k1(packed, t_dim: int, stereo: bool = True, tail_lines: int = WIRE_LINES,
+       mono: bool = False):
+    """K1's wrapper on any of its four inputs: a tuple of arrays or a
+    GranuleBatch, or a tensor of wire rows."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    if isinstance(packed, tuple):
+        return K.requant_stereo(packed, stereo)
+    return K.requant_stereo_fused(packed, t_dim, tail_lines, mono, stereo)
+
+
+def k1_batch(packed, t_dim: int, tail_lines: int = WIRE_LINES, mono: bool = False):
+    """The GranuleBatch that K1's plain version reads for `packed`."""
+    from go_mp3_tpu_torch.ops import granule as G
+
+    if isinstance(packed, tuple):
+        return G.batch_from_any(packed)
+    unpack = G.unpack_fused_mono_ref if mono else G.unpack_fused_ref
+    return G.batch_from_packed8(*unpack(packed, t_dim, tail_lines))
+
+
+def k1_ref(packed, t_dim: int, stereo: bool = True, **wire_args):
+    from go_mp3_tpu_torch.ops import granule as G
+
+    return G.requant_stereo_ref(k1_batch(packed, t_dim, **wire_args), stereo)
+
+
+K1_CASES = (  # (S, T, wire tail lines, mono): one chunk, K1's four inputs
+    (64, 240, 512, False),
+    (1, 128, 512, False),
+    (5, 37, 301, True),
+)
+
+
+def k1_inputs(seed: int, s_dim: int, t_dim: int, lines: int, mono: bool, dev):
+    """One seeded chunk as each of K1's four inputs, all holding the same
+    granules: the int8 arrays (wire_chunk's: tail past `lines` zero and,
+    mono, channel 1 zero), the int16 interface and the GranuleBatch unpacked
+    from them, and the fused rows built from them."""
+    import torch
+
+    import torch_synthetic as syn
+    from go_mp3_tpu_torch.ops import granule as G
+
+    buf, arrays, _ = wire_chunk(seed, s_dim, t_dim, lines, mono)
+    p8 = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    p16 = tuple(torch.from_numpy(a).to(dev) for a in syn.from_packed8(*arrays))
+    batch = G.GranuleBatch(*(f.contiguous() for f in G.batch_from_packed(*p16)))
+    return {"int8": p8, "int16": p16, "granule_batch": batch,
+            "fused": torch.from_numpy(buf).to(dev)}
+
+
+def _k1_launch(label: str, packed, s_dim, t_dim, stereo, g, lines, mono):
+    """K1 through its private launcher, `g` granules a block."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    if label == "fused":
+        return K._requant_stereo_launch(K._FUSED, (packed,), s_dim, t_dim, stereo,
+                                        g, lines, mono)
+    return K._requant_stereo_launch(*K._k1_inputs(packed), stereo, g)
+
+
+def _at_odd_address(t):
+    """A contiguous copy of `t` one element past an allocation's start
+    (an odd address for a 1-byte dtype)."""
+    import torch
+
+    out = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def phase_k1_routes(dev) -> dict:
+    """K1's four inputs on the same granules (K1_CASES), requantized alone
+    and whole: every input at every tile size the kernel takes
+    bit-identical to the int8 input through the wrapper. Each input timed
+    at each tile at S=64 x T=240 and at the Decoder's S=1 x T=128. ->
+    {input: {shape: the wrapper's tile, its time, every tile's, the
+    bound}}."""
+    import torch
+
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    from go_mp3_tpu_torch.ops import granule as G
+
+    times = {}
+    for i, (s_dim, t_dim, lines, mono) in enumerate(K1_CASES):
+        inputs = k1_inputs(SEED + 40 + i, s_dim, t_dim, lines, mono, dev)
+        odd = s_dim * t_dim % 4
+        if odd:  # the bool fields at an odd address, none of whole words
+            inputs["granule_batch, flags unaligned"] = G.GranuleBatch(*(
+                _at_odd_address(f) if f.dtype == torch.bool else f
+                for f in inputs["granule_batch"]))
+        for stereo in (False, True):
+            want = K.requant_stereo(inputs["int8"], stereo)
+            for label, packed in inputs.items():
+                for g in K.K1_TILES:
+                    got = _k1_launch(label, packed, s_dim, t_dim, stereo, g, lines, mono)
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"K1 [{label}] S={s_dim} T={t_dim} L={lines} mono={mono} "
+                          f"stereo={stereo}: {g} granules a block differs from int8")
+        say(f"phase 2 K1 routes S={s_dim} T={t_dim} L={lines} mono={mono}: "
+            f"{', '.join(inputs)} bit-identical, requantized alone and "
+            f"whole, at every tile {K.K1_TILES}")
+        if t_dim not in (240, 128):
+            continue
+        out = nbytes(*want)
+        for label, packed in inputs.items():
+            tiles = {g: time_ms(lambda packed=packed, g=g: _k1_launch(
+                label, packed, s_dim, t_dim, True, g, lines, mono)) for g in K.K1_TILES}
+            ins = packed if isinstance(packed, tuple) else (packed,)
+            pick = K.k1_tile(dev, s_dim, t_dim)
+            times.setdefault(label, {})[f"S={s_dim} T={t_dim}"] = {
+                "ms": tiles[pick], "tile": pick, "tiles_ms": tiles,
+                **bound(nbytes(*ins) + out, k1_flops(s_dim, t_dim))}
+            say(f"phase 2 K1 tiles [{label}] (S={s_dim} T={t_dim}; card time, ms; "
+                f"the wrapper's G={pick}): "
+                + ", ".join(f"G={g} {t:.4f}" for g, t in tiles.items()))
+    return times
+
+
+def phase_empty_chunk(dev) -> None:
+    """A chunk of T = 0 granules: K1 on each input at every tile, K2 and K3
+    at every run length, K4, decode_chunk on each input and
+    decode_chunk_fused, stereo and mono: empty outputs of the right shapes,
+    no launch, and the state returned equal to the state given."""
     import torch
 
     from go_mp3_tpu_torch.ops import granule as G
     from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.ops.granule import state_from_numpy
+
+    s_dim, lines = 3, 301
+    rng = np.random.default_rng(SEED + 50)
+    state = state_from_numpy(
+        (rng.standard_normal((s_dim, 2, 32, 18)) * 0.05).astype(np.float32),
+        (rng.standard_normal((s_dim, 2, 16, 64)) * 0.3).astype(np.float32), dev)
+    valid = torch.zeros(s_dim, dtype=torch.int32, device=dev)
+    p16 = (torch.zeros((s_dim, 0, 1152), dtype=torch.int16, device=dev),
+           torch.zeros((s_dim, 0, 144), dtype=torch.int16, device=dev))
+    p8 = (torch.zeros((s_dim, 0, 1024), dtype=torch.int8, device=dev),
+          torch.zeros((s_dim, 0, 128), dtype=torch.int16, device=dev),
+          torch.zeros((s_dim, 0, 168), dtype=torch.uint8, device=dev))
+    batch = G.GranuleBatch(*(torch.zeros((s_dim, 0, *inner), dtype=dtype, device=dev)
+                             for dtype, inner in G.BATCH_FIELDS.values()))
+    wire = torch.zeros((s_dim, 0), dtype=torch.uint8, device=dev)
+    K.reset_launch_counts()
+
+    def same_state(st, what):
+        check(torch.equal(st.store, state.store) and torch.equal(st.v_fifo, state.v_fifo),
+              f"T=0 {what}: the state returned differs from the state given")
+
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch),
+                          ("fused", wire)):
+        for g in K.K1_TILES:
+            x, ginfo = _k1_launch(label, packed, s_dim, 0, True, g, lines, False)
+            check(x.shape == (s_dim, 0, 2, 576) and ginfo.shape == (s_dim, 0),
+                  f"T=0 K1 [{label}] G={g}: shapes {x.shape}, {ginfo.shape}")
+        if label != "fused":
+            pcm, st = K.decode_chunk(packed, state, valid)
+            check(pcm.shape == (s_dim, 0, 2), f"T=0 decode_chunk [{label}]: {pcm.shape}")
+            same_state(st, f"decode_chunk [{label}]")
+    for mono in (False, True):
+        pcm, st = K.decode_chunk_fused(wire, state, valid, 0, lines, mono)
+        check(pcm.shape == (s_dim, 0, 2), f"T=0 decode_chunk_fused: {pcm.shape}")
+        same_state(st, f"decode_chunk_fused mono={mono}")
+        got = K.unpack_fused(wire, 0, lines, mono)
+        check([tuple(a.shape) for a in got] == [(s_dim, 0, 1024), (s_dim, 0, 128),
+                                                (s_dim, 0, 168)],
+              f"T=0 K4 mono={mono}: shapes {[a.shape for a in got]}")
+    x = torch.zeros((s_dim, 0, 2, 576), dtype=torch.float32, device=dev)
+    ginfo = torch.zeros((s_dim, 0), dtype=torch.int32, device=dev)
+    x18 = torch.zeros((s_dim, 0, 2, 32, 18), dtype=torch.float32, device=dev)
+    for g in K2_RUNS:
+        got, store = K._hybrid_launch(x, ginfo, state.store, valid, g)
+        check(got.shape == x18.shape and torch.equal(store, state.store),
+              f"T=0 K2 with {g} granules a warp")
+    for g in K3_RUNS:
+        pcm, fifo = K._synth_launch(x18, ginfo, state.v_fifo, valid, None, g)
+        check(pcm.shape == (s_dim, 0, 2) and torch.equal(fifo, state.v_fifo),
+              f"T=0 K3 with {g} granules a block")
+    counts = K.all_counts()
+    check(not any(counts.values()), f"T=0: a kernel was launched ({counts})")
+    say(f"phase 2 tiles S={s_dim} T=0: K1 (4 inputs x tiles {K.K1_TILES}), K2 (runs "
+        f"{K2_RUNS}), K3 (runs {K3_RUNS}), K4 (stereo and mono), "
+        f"decode_chunk (3 inputs) and decode_chunk_fused (stereo and mono): empty "
+        f"outputs, no launch, the state returned equal to the state given")
+
+
+def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
+    """K1 (each input), K2, K3 against their plain versions on the same
+    inputs; one eager chunk of the fused=False path timed."""
+    import torch
+
+    from go_mp3_tpu_torch.ops import granule as G
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.ops import wire as W
 
     p16, p8, valid, state, _ = smoke_batch(s_dim, t_dim, dev)
     batch = G.GranuleBatch(*(f.contiguous() for f in G.batch_from_packed(*p16)))
+    wire = torch.from_numpy(W.build_fused_chunk(*(a.cpu().numpy() for a in p8))).to(dev)
     rows = {}
 
     # K1, each of its inputs: requantize alone (2e-5 of the granule's
     # scale, test_stage_parity's bound), then the stereo part on the
     # kernel's own requantized input (1e-6)
-    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch)):
-        b = G.batch_from_any(packed)
-        k_req, k_ginfo = K.requant_stereo(packed, stereo=False)
+    routes = {}
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch),
+                          ("fused", wire)):
+        b = k1_batch(packed, t_dim)
+        k_req, k_ginfo = k1(packed, t_dim, stereo=False)
         ref_req, ref_ginfo = G.requant_stereo_ref(b, stereo=False)
         check(torch.equal(k_ginfo, ref_ginfo), f"K1 {label}: ginfo differs")
         e_req = _rel_per_granule(k_req, ref_req)
-        k_x, _ = K.requant_stereo(packed)
+        k_x, _ = k1(packed, t_dim)
         e_st = _rel_per_granule(k_x, G._stereo(b, k_req))
         ref_x, ginfo = G.requant_stereo_ref(b)
         e_all = _rel_per_granule(k_x, ref_x)
         say(f"phase 2 K1 requant_stereo [{label}]: requant rel {e_req:.3e} "
             f"(<= 2e-5), stereo rel {e_st:.3e} (<= 1e-6), whole rel {e_all:.3e}")
         check(e_req <= 2e-5 and e_st <= 1e-6 and e_all <= 2e-5, f"K1 {label} bound")
+        ins = packed if isinstance(packed, tuple) else (packed,)
+        routes[label] = {
+            "max_abs_err": float((k_x - ref_x).abs().max()),
+            "ms": time_ms(lambda packed=packed: k1(packed, t_dim)),
+            "plain_ms": time_ms(lambda packed=packed: k1_ref(packed, t_dim)),
+            **bound(nbytes(*ins, k_x, ref_ginfo), k1_flops(s_dim, t_dim)),
+        }
         if label == "int8":
             x, x_ginfo = ref_x, ginfo
-            rows["requant_stereo"] = {
-                "max_abs_err": float((k_x - ref_x).abs().max()),
-                "ms": time_ms(lambda: K.requant_stereo(p8)),
-                "plain_ms": time_ms(
-                    lambda: G.requant_stereo_ref(G.batch_from_any(p8))),
-                **bound(nbytes(*p8, k_x, ref_ginfo), k1_flops(s_dim, t_dim)),
-            }
+    rows["requant_stereo"] = {**routes.pop("int8"), "routes": routes}
     # the GranuleBatch route reads the int16 route's granules field by
     # field: the same bits, requantized alone and whole
     for stereo in (False, True):
         a, b = K.requant_stereo(batch, stereo), K.requant_stereo(p16, stereo)
         check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
               f"K1 GranuleBatch route differs from the int16 route (stereo={stereo})")
-    k_x, _ = K.requant_stereo(batch)
-    route = {
-        "max_abs_err": float((k_x - G.requant_stereo_ref(batch)[0]).abs().max()),
-        "ms": time_ms(lambda: K.requant_stereo(batch)),
-        "plain_ms": time_ms(lambda: G.requant_stereo_ref(batch)),
-        **bound(nbytes(*batch, k_x, ref_ginfo), k1_flops(s_dim, t_dim)),
-    }
-    rows["requant_stereo"]["routes"] = {"granule_batch": route}
-    say(f"phase 2 K1 requant_stereo [granule_batch]: bit-identical to the "
-        f"int16 route; kernel {route['ms']:.4f} ms, plain "
-        f"{route['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}; card time)")
-    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch)):
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch),
+                          ("fused", wire)):
         say(f"phase 2 K1 requant_stereo [{label}] per call, host included: "
-            f"{time_ms(lambda: K.requant_stereo(packed), queued=False):.4f} ms "
-            f"(card time {time_ms(lambda: K.requant_stereo(packed)):.4f} ms)")
+            f"{time_ms(lambda: k1(packed, t_dim), queued=False):.4f} ms "
+            f"(card time {time_ms(lambda: k1(packed, t_dim)):.4f} ms)")
+    # K5' (the fused=False path's chunk, chunk_t = 256): K1 -> K2 -> K3 eager
+    p16e, p8e, valid_e, state_e, _ = smoke_batch(s_dim, 256, dev)
+    eager = time_ms(lambda: K.decode_chunk(p8e, state_e, valid_e))
+    pcm_e, _ = K.decode_chunk(p8e, state_e, valid_e)
+    e_bound = bound(nbytes(*p8e, valid_e, pcm_e) + 2 * nbytes(*state_e),
+                    k1_flops(s_dim, 256) + k2_flops(s_dim, 256) + k3_flops(s_dim, 256))
+    say(f"phase 2 time decode_chunk (K5', one eager chunk of the fused=False "
+        f"path, int8, S={s_dim}, T=256): {eager:.4f} ms, bound "
+        f"{e_bound['bound_ms']:.4f} ms ({e_bound['bound_by']})")
+    rows["segment_graph_eager_chunk"] = {"ms": eager, **e_bound}
 
     # K2 against plain (bound: _check_k2)
     ginfo = x_ginfo
@@ -494,7 +701,8 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
         "plain_ms": time_ms(lambda: G.synth_ref(x18, ginfo, fifo, valid)),
         **bound(nbytes(x18, ginfo, fifo, valid, pcm_out, fifo), k3_flops(s_dim, t_dim)),
     }
-    for name, r in rows.items():
+    for name in ("requant_stereo", "hybrid", "synth"):
+        r = rows[name]
         say(f"phase 2 time {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}; card time)")
     # every run length on the same inputs, through the private launchers
@@ -567,8 +775,10 @@ def wire_chunk(seed: int, s_dim: int, t_dim: int, lines: int, mono: bool):
 
 
 def phase_unpack(dev, s_dim: int, t_dim: int) -> dict:
-    """K4 against its plain version: exact equality, and both equal to the
-    arrays the wire was built from."""
+    """K4 against its plain version: exact equality, and both
+    equal to the arrays the wire was built from. K1's wire route on the
+    same rows: within phase 2's bounds of its plain version, and
+    bit-identical to K1 on K4's arrays (requantized alone and whole)."""
     import torch
 
     from go_mp3_tpu_torch.ops import granule as G
@@ -592,8 +802,25 @@ def phase_unpack(dev, s_dim: int, t_dim: int) -> dict:
             check(torch.equal(a, b), f"K4 {label}: {name} differs from plain")
             check(np.array_equal(a.cpu().numpy(), want),
                   f"K4 {label}: {name} differs from the wire's source arrays")
+        worst = []
+        for stereo in (False, True):
+            k_x, k_ginfo = K.requant_stereo_fused(buf, t, lines, mono, stereo)
+            x4, g4 = K.requant_stereo(got, stereo)
+            check(torch.equal(k_x, x4) and torch.equal(k_ginfo, g4),
+                  f"K1 wire {label} (stereo={stereo}): differs from K4 -> K1")
+            ref_x, ref_ginfo = k1_ref(buf, t, stereo, tail_lines=lines, mono=mono)
+            check(torch.equal(k_ginfo, ref_ginfo), f"K1 wire {label}: ginfo differs")
+            worst.append(_rel_per_granule(k_x, ref_x))
+        b = k1_batch(buf, t, lines, mono)
+        e_st = _rel_per_granule(k_x, G._stereo(b, K.requant_stereo_fused(
+            buf, t, lines, mono, stereo=False)[0]))
+        check(worst[0] <= 2e-5 and e_st <= 1e-6 and worst[1] <= 2e-5,
+              f"K1 wire {label} bound")
         say(f"phase 2 K4 unpack_fused [{label}]: S={s} T={t} L={lines} "
-            f"({buf_np.shape[1]} B/row): equal to plain and to the source")
+            f"({buf_np.shape[1]} B/row): equal to plain and to the source; "
+            f"K1 on the wire bit-identical to K4 -> K1, "
+            f"requant rel {worst[0]:.3e} (<= 2e-5), stereo rel {e_st:.3e} "
+            f"(<= 1e-6), whole rel {worst[1]:.3e} against plain")
     buf = torch.from_numpy(wire_chunk(SEED + 10, s_dim, t_dim, 512, False)[0]).to(dev)
     row = {
         "max_abs_err": 0.0,
@@ -601,9 +828,14 @@ def phase_unpack(dev, s_dim: int, t_dim: int) -> dict:
         "plain_ms": time_ms(lambda: G.unpack_fused_ref(buf, t_dim, 512)),
         **bound(nbytes(buf, *K.unpack_fused(buf, t_dim, 512)), 0.0),
     }
-    say(f"phase 2 time unpack_fused: kernel {row['ms']:.4f} ms, plain "
+    small = torch.from_numpy(wire_chunk(SEED + 17, 1, 128, 512, False)[0]).to(dev)
+    row["shapes"] = {"S=1 T=128": {
+        "ms": time_ms(lambda: K.unpack_fused(small, 128, 512)),
+        **bound(nbytes(small, *K.unpack_fused(small, 128, 512)), 0.0)}}
+    say(f"phase 2 time unpack_fused: kernel {row['ms']:.4f} ms (one launch), plain "
         f"{row['plain_ms']:.4f} ms (S={s_dim}, T={t_dim}, L=512, "
-        f"{buf.numel() / 1e6:.1f} MB in)")
+        f"{buf.numel() / 1e6:.1f} MB in); at S=1 T=128: kernel "
+        f"{row['shapes']['S=1 T=128']['ms']:.4f} ms")
     return row
 
 
@@ -671,8 +903,8 @@ def phase_graph(dev, t_dim: int, k: int = 4) -> dict:
                   f"SegmentGraph replay {i}: state of group {g} differs")
     say(f"phase 3 SegmentGraph: k={k}, groups {groups} (lanes, width, mono), "
         f"two replays with the state carried: PCM and state bit-identical to "
-        f"run_segment_eager; {sum(graph.launches.values())} kernel calls "
-        f"captured per replay {graph.launches}; capture (warm-up included) "
+        f"run_segment_eager; {sum(graph.launches[k] for k in KERNEL_ROWS)} kernel "
+        f"launches captured per replay {graph.launches}; capture (warm-up included) "
         f"{graph.capture_seconds:.3f} s")
     bufs, valids = segs[0]
     st_copy = [DecodeState(s.store.clone(), s.v_fifo.clone()) for s in slots[1]]
@@ -758,20 +990,19 @@ class _NonSeekable:
         return False
 
 
-def _counts() -> dict:
-    """The launch counts since the last reset, with K1's GranuleBatch
-    route as "granule_batch"."""
-    from go_mp3_tpu_torch.ops import kernels as K
-
-    return {**K.launch_counts(), "granule_batch": K.requant_stereo.batch_launches}
+K1_ROUTES = ("int16", "granule_batch", "fused")  # K1's counted routes
 
 
-def _check_chain(counts: dict, what: str, batch_route: bool) -> None:
+def _check_chain(counts: dict, what: str, route: str | None) -> None:
+    """K1-K3 ran, every K1 launch on `route` (one of K1_ROUTES, or None:
+    the int8 interface), and K4 never."""
     check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth")),
           f"{what}: a kernel of K1-K3 never ran ({counts})")
-    check((counts["granule_batch"] == counts["requant_stereo"]) == batch_route,
-          f"{what}: K1's GranuleBatch route ran {counts['granule_batch']} of "
-          f"{counts['requant_stereo']} times")
+    for r in K1_ROUTES:
+        check((counts[r] == counts["requant_stereo"]) == (r == route),
+              f"{what}: K1's {r} route ran {counts[r]} of "
+              f"{counts['requant_stereo']} times")
+    check(counts["unpack_fused"] == 0, f"{what}: K4 ran {counts['unpack_fused']} times")
 
 
 def _sync_all() -> None:
@@ -808,7 +1039,7 @@ class _Launches:
         out = fn()
         _sync_all()
         wall = time.perf_counter() - t0
-        counts = {**_counts(), "segment_graph": SegmentGraph.replays}
+        counts = {**K.all_counts(), "segment_graph": SegmentGraph.replays}
         check(torch.cuda.current_device() == self.home,
               f"{what}: torch's current device moved from {self.home} to "
               f"{torch.cuda.current_device()}")
@@ -824,17 +1055,18 @@ def phase_decoder_paths(dev, data: bytes, native_pcm: bytes, exact: bytes) -> di
 
     runs = _Launches()
     paths = (
-        ("use_native=False", lambda: Decoder(data, use_native=False, device=dev), True),
-        ("non-seekable source", lambda: Decoder(_NonSeekable(data), device=dev), False),
-        ("GaplessDecoder", lambda: GaplessDecoder(data, device=dev), False),
+        ("use_native=False", lambda: Decoder(data, use_native=False, device=dev),
+         "granule_batch"),
+        ("non-seekable source", lambda: Decoder(_NonSeekable(data), device=dev), "int16"),
+        ("GaplessDecoder", lambda: GaplessDecoder(data, device=dev), "int16"),
     )
-    for label, make, batch_route in paths:
+    for label, make, route in paths:
         def read(make=make):
             d = make()
             return d, d.read_all()
 
         (d, pcm), wall, counts = runs.run(f"phase 4b {label}", read)
-        _check_chain(counts, f"phase 4b {label}", batch_route)
+        _check_chain(counts, f"phase 4b {label}", route)
         secs = len(pcm) / 4 / d.sample_rate()
         if label == "GaplessDecoder":
             # no LAME tag on this stream: the decoder delay alone is cut
@@ -955,7 +1187,6 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
         f"(worst RMS {worst[0]:.4f}, max {worst[1]}); PCM sha256 (the lanes "
         f"joined in order) {sha256(b''.join(base))}")
 
-    kernel_names = list(KERNEL_ROWS)
     for label, kw, res, _, wall, peak, counts in runs:
         ph = res.phase_seconds
         card = ph["h2d"] + ph["kernels"] + ph["d2h"]
@@ -973,14 +1204,52 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
                 f"{res.graph_replays}, captures {res.graph_capture_seconds:.3f} s")
         say(f"{line}; peak device memory {peak[0]:.0f} MiB, {peak[1]} device "
             f"allocations; launches {counts}")
-        fused = kw.get("fused", True)
-        check(all(counts[n] > 0 for n in kernel_names if n != "unpack_fused"),
-              f"corpus [{label}]: a kernel of K1-K3 never ran")
-        check((counts["unpack_fused"] > 0) == fused,
-              f"corpus [{label}]: K4 ran {counts['unpack_fused']} times")
+        _check_chain(counts, f"corpus [{label}]",
+                     "fused" if kw.get("fused", True) else None)
         check((counts["segment_graph"] > 0) == ("drain" in kw),
               f"corpus [{label}]: {counts['segment_graph']} graph replays")
     return launches.totals, base
+
+
+def phase_public_unpack(dev, lanes: list[bytes], t_dim: int = 240) -> dict:
+    """The public unpack_fused (K4) on the corpus's own wire: the first
+    chunk of each lane group (the stereo and the mono lanes of
+    corpus_lanes) parsed by the C++ parser, built into fused rows at the
+    chunk's tail cap, unpacked on the card, equal to the parser's arrays.
+    -> its launches."""
+    import torch
+
+    from go_mp3_tpu_torch.native.lib import BatchParser
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.ops import wire as W
+
+    runs = _Launches()
+    for label, group, mono in (("stereo", lanes[:N_STEREO], False),
+                               ("mono", lanes[N_STEREO:], True)):
+        s_dim = len(group)
+        arrays = (np.zeros((s_dim, t_dim, 1024), np.int8),
+                  np.zeros((s_dim, t_dim, 128), np.int16),
+                  np.zeros((s_dim, t_dim, 168), np.uint8))
+        valids = np.zeros(s_dim, np.int32)
+        parser = BatchParser(group)
+        try:
+            parser.parse_chunk_into(*arrays, valids)
+        finally:
+            parser.close()
+        lines = W.tail_cap_lines(arrays[0])
+        build = W.build_fused_chunk_mono if mono else W.build_fused_chunk
+        buf = torch.from_numpy(build(*arrays, lines)).to(dev)
+        got, wall, counts = runs.run(f"phase 5c unpack_fused [{label}]",
+                                     lambda: K.unpack_fused(buf, t_dim, lines, mono))
+        check(counts["unpack_fused"] == 1, f"phase 5c [{label}]: launches {counts}")
+        for name, a, want in zip(("tail8", "head16", "side8"), got, arrays):
+            check(np.array_equal(a.cpu().numpy(), want),
+                  f"phase 5c [{label}]: {name} differs from the parser's")
+        say(f"phase 5c unpack_fused [{label}]: the corpus's first chunk, "
+            f"{s_dim} lanes x {t_dim} granules ({int(valids.sum())} valid), tail "
+            f"cap {lines}, {buf.numel()} B of wire: equal to the parser's arrays "
+            f"({wall * 1e3:.3f} ms); launches {counts}")
+    return runs.totals
 
 
 def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768):
@@ -1007,7 +1276,7 @@ def phase_decode_corpus(dev, lanes: list[bytes], depth: int = 768):
     runs = _Launches()
     res, wall, counts = runs.run("phase 5b decode_corpus", lambda: decode_corpus(
         streams, chunk_t=128, device=dev))
-    _check_chain(counts, "phase 5b decode_corpus", True)
+    _check_chain(counts, "phase 5b decode_corpus", "granule_batch")
 
     fast = decode_corpus_fast(cut, chunk_t=128, fused=False, device=dev)
     check(res.pcm == fast.pcm, "phase 5b: decode_corpus differs from "
@@ -1123,8 +1392,7 @@ def phase_mesh(dev, lanes: list[bytes], corpus_pcm: list[bytes],
                 pcm = res.pcm
             check(pcm == corpus_pcm,
                   f"phase 6 corpus {run_label} on {label}: PCM differs from phase 5")
-            check(all(counts[n] > 0 for n in (*kernel_chain, "unpack_fused")),
-                  f"phase 6 corpus {run_label} on {label}: a kernel never ran ({counts})")
+            _check_chain(counts, f"phase 6 corpus {run_label} on {label}", "fused")
             check((counts["segment_graph"] > 0) == ("drain" in kw),
                   f"phase 6 corpus {run_label}: {counts['segment_graph']} graph replays")
             ph = res.phase_seconds
@@ -1145,7 +1413,7 @@ def phase_mesh(dev, lanes: list[bytes], corpus_pcm: list[bytes],
                                   decode_fn=make_sharded_decoder(mesh)))
         check(res.pcm == py_pcm, f"phase 6 decode_corpus on {label}: PCM differs "
               "from phase 5b")
-        _check_chain(counts, f"phase 6 decode_corpus on {label}", True)
+        _check_chain(counts, f"phase 6 decode_corpus on {label}", "granule_batch")
         say(f"phase 6 decode_corpus(decode_fn=make_sharded_decoder) on {label}: "
             f"{res.granules} granules, wall {wall:.3f} s; byte-identical to "
             f"phase 5b; launches {counts}")
@@ -1164,8 +1432,9 @@ def phase_conformance() -> dict:
                                 lambda: conformance.main(["--device", "cuda"]))
     check(rc == 0, f"phase 7: the conformance bundle failed (exit {rc})")
     check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth",
-                                       "unpack_fused", "segment_graph")),
+                                       "fused", "segment_graph")),
           f"phase 7: a kernel never ran ({counts})")
+    check(counts["unpack_fused"] == 0, f"phase 7: K4 ran {counts['unpack_fused']} times")
     say(f"phase 7 conformance on cuda: passed in {wall:.3f} s; launches {counts}")
     return runs.totals
 
@@ -1204,29 +1473,36 @@ def main(argv=None) -> int:
     dev = resolve_device(None)
     phase_device()
     rows = phase_kernels(dev, S_SMOKE, T_SMOKE)
+    k1_shapes = phase_k1_routes(dev)
     phase_tiles(dev)
+    phase_empty_chunk(dev)
     rows["unpack_fused"] = phase_unpack(dev, S_SMOKE, T_SMOKE)
     phase_chunk_invariance(dev, S_SMOKE, T_SMOKE)
     rows["segment_graph"] = phase_graph(dev, T_SMOKE)
+    rows["segment_graph"]["eager_chunk"] = rows.pop("segment_graph_eager_chunk")
 
     runs = _Launches()  # the main path's runs start here
     (data, native_pcm, exact), _, decoder = runs.run("phase 4 Decoder",
                                                      lambda: phase_decoder(dev))
     say(f"launches: Decoder {decoder}")
-    _check_chain(decoder, "phase 4 Decoder", False)
+    _check_chain(decoder, "phase 4 Decoder", "int16")
     lanes = corpus_lanes()
     counts = dict(runs.totals)
     corpus_totals, corpus_pcm = phase_corpus(dev, lanes)
     py_totals, py_streams, py_pcm = phase_decode_corpus(dev, lanes)
     for part in (phase_decoder_paths(dev, data, native_pcm, exact),
-                 corpus_totals, py_totals,
+                 corpus_totals, phase_public_unpack(dev, lanes), py_totals,
                  phase_mesh(dev, lanes, corpus_pcm, py_streams, py_pcm),
                  phase_conformance()):
         for name, n in part.items():
             counts[name] = counts.get(name, 0) + n
     check_standalone()
 
-    rows["requant_stereo"]["routes"]["granule_batch"]["launches"] = counts["granule_batch"]
+    k1_row = rows["requant_stereo"]
+    k1_row["shapes"] = k1_shapes.pop("int8")
+    for label, route in k1_row["routes"].items():
+        route["launches"] = counts[label]
+        route["shapes"] = k1_shapes[label]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **rows[name]}

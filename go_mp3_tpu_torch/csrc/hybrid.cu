@@ -238,7 +238,8 @@ int gomp3_hybrid_init(int device, const float* cs, const float* ca,
 // x f32 [S][T][2][576], ginfo i32 [S][T], store_in f32 [S][2][32][18],
 // valid i32 [S] -> x18 f32 [S][T][2][32][18], store_out f32 [S][2][32][18].
 // G granules per warp, `warps` warps per block (1..4); x and x18 16-byte
-// aligned.
+// aligned. T == 0 launches nothing and copies store_in to store_out on the
+// stream.
 int gomp3_hybrid(int device, const float* x, const int32_t* ginfo,
                  const float* store_in, const int32_t* valid, float* x18,
                  float* store_out, int S, int T, int G, int warps, void* stream) {
@@ -251,6 +252,9 @@ int gomp3_hybrid(int device, const float* x, const int32_t* ginfo,
     hybrid_kernel<<<(unsigned)blocks, warps * 32, 0,
                     static_cast<cudaStream_t>(stream)>>>(
         x, ginfo, store_in, valid, x18, store_out, S, T, G);
+  } else if (S > 0) {
+    cudaMemcpyAsync(store_out, store_in, sizeof(float) * S * 2 * 32 * 18,
+                    cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream));
   }
   return (int)cudaGetLastError();
 }

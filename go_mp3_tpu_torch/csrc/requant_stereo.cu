@@ -1,46 +1,72 @@
-// K1: unpack + requantize + MS/intensity stereo, one granule per block.
+// K1: unpack + requantize + MS/intensity stereo, a tile of granules per block.
 //
 // Replaces: the XLA program of _requantize, _stereo and the loads in front
 // of them in go_mp3_tpu/ops/granule.py (:242-358): the packed unpacks
-// (batch_from_packed / batch_from_packed8, :560-608) and the GranuleBatch
-// that decode_chunk_impl takes as it is (:77-93, :493). Plain version:
-// requant_stereo_ref in go_mp3_tpu_torch/ops/granule.py.
+// (batch_from_packed / batch_from_packed8, :560-608), the GranuleBatch that
+// decode_chunk_impl takes as it is (:77-93, :493), and the fused wire's
+// unpack (unpack_fused / unpack_fused_mono, :661-723) that
+// decode_chunk_fused_batch_impl (:726-741) fuses into those loads. Plain
+// version: requant_stereo_ref (and, for the wire, requant_stereo_fused_ref)
+// in go_mp3_tpu_torch/ops/granule.py.
 //
-// What bounds it on an H100: memory. Per granule it reads 1,152 spectral
-// values (2,624 bytes on the int8 interface, 2,592 on int16, 2,867 as a
-// GranuleBatch) and writes 4,608 bytes of f32, for ~2 exp2f/log2f per line;
-// the card moves bytes far slower than it does that arithmetic.
+// What bounds it on an H100: memory (the floor below); the instructions
+// come close behind. Per granule it reads 1,152 spectral
+// values (2,624 bytes on the int8 interface, ~2,624 on the wire at full
+// width, 2,592 on int16, 2,867 as a GranuleBatch) and writes 4,608 bytes of
+// f32, for ~2 exp2f/log2f per line: 93.1 MB a [64, 240] chunk on the int8
+// interface and on the wire, 0.0278 ms at 3.35 TB/s.
 //
-// Design: one block of 576 threads per granule, thread = line, both
-// channels in one thread (MS and intensity stereo mix the channels of a
-// line). The block first loads the granule's side words into shared memory
-// and turns them into per-band values there: the requantize exponents (22
-// long + 39 short per channel) and the intensity multipliers as deltas
-// from 1. Each line then reads its band through the per-line band maps
-// (global memory, one coalesced byte per thread) -- the index the TPU chain
-// built as one-hot matmuls. Only the load differs between the three input
-// layouts (template parameter): the int16 side words, the int8 interface's
-// byte side words, or the GranuleBatch's 13 side fields, each read in its
-// own dtype and assembled into the same side words; spectra are read
-// straight from the arrays the caller holds (int8 tail + int16 head, or
-// int16), so no unpacked copy exists. Output stores are coalesced along the
-// line axis. exp2f/log2f are the accurate ones: the build has no
-// --use_fast_math. The block also writes the granule's ginfo word (block
-// types, classes, mono), which K2 and K3 read instead of the side words.
+// Design. A block owns a tile of G consecutive granules of one stream
+// (G = 1, 2 or 4, picked by the wrapper so that a chunk of one stream still
+// spreads over the card; no output depends on it). An item is
+// kSpan = 1, 2 or 4 lines of both channels of one granule (MS and
+// intensity stereo mix the channels of a line): a small tile gets a thread
+// a line or two, a large one a thread per 4 lines of several granules.
+// The block runs in three steps with one barrier between each:
+//  A. every load of the tile in one pass, so the block waits on device
+//     memory once: the tile's side words into shared memory; each
+//     thread's spectra (its items' lines) into registers, 1-8 bytes a
+//     load; on the wire, the tile's tail through fused_tile.cuh's [lines x
+//     granules] loader, transposed in shared memory by __byte_perm, and the
+//     head pairs straight into registers;
+//  B. every thread builds the tile's per-band values from the side words:
+//     the requantize exponents (22 long + 39 short per channel), the
+//     intensity multipliers as deltas from 1, and each granule's ginfo word
+//     (block types, classes, mono), which K2 and K3 read instead of the
+//     side words. The items' band indices (3 x 6 x 576 bytes of per-line
+//     maps, L1-resident) are loaded into registers just before, so they
+//     arrive while B runs;
+//  C. the items. The arithmetic issues more instructions than the bytes
+//     take to move, so C skips what is exact without it: a zero line its
+//     exp2f/log2f (the expression gives +0; most lines of a real granule
+//     are zero), and a granule without intensity stereo the multiplier
+//     product (exactly 1). The outputs leave in 4-16-byte stores,
+//     coalesced along the lines.
+// Only the load differs between the four inputs (template parameter): the
+// int16 interface, the int8 interface, the GranuleBatch's fields (each in
+// its own dtype, assembled into the same side words) and the fused wire
+// rows; no unpacked copy of any of them exists in device memory.
+//
+// Arithmetic: every float expression is the one-granule-a-block kernel's
+// (a_long, a_short, the exp2f/log2f pair, the MS butterfly, the intensity
+// product), so all four inputs and every tile size give its bits.
+// exp2f/log2f are the accurate ones: the build has no --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "fused_tile.cuh"
 
 namespace {
 
+using gomp3::kHeadLines;
+using gomp3::kSide8;
+using gomp3::kTailLines;
+using gomp3::kTailWords;
+
 constexpr int kLines = 576;
-constexpr int kHead = 64;               // per-channel int16 head lines
-constexpr int kTail = kLines - kHead;   // per-channel int8 tail lines
 constexpr int kSideWords = 144;
-constexpr int kSide8 = 168;
-constexpr int kFlagThread = 160;  // first thread of the warp after the side words
 
 // input layouts; the pointers in Inputs.p, in order:
 enum Layout : int {
@@ -52,17 +78,27 @@ enum Layout : int {
                // [n][2], subblock_gain i32 [n][2][3], block_type,
                // block_class i32 [n][2], variant i32 [n], ms_flag, is_flag
                // bool [n], count1_r i32 [n], mono bool [n]
+  kFused = 3,  // the wire rows u8 [S][row_bytes] (fused_tile.cuh)
 };
 constexpr int kMaxInputs = 14;
 struct Inputs {
   const void* p[kMaxInputs];
 };
 
-__device__ __forceinline__ int i32_at(const void* p, size_t i) {
-  return static_cast<const int32_t*>(p)[i];
-}
-__device__ __forceinline__ int flag_at(const void* p, int g) {
-  return static_cast<const uint8_t*>(p)[g] != 0;
+// a GranuleBatch field's element i: an int32, or a bool (of n in the
+// field) read through the aligned 4-byte word that holds it, so that every
+// lane of a warp issues the same load. Where that word reaches past either
+// end of the field's n bytes (a field at an unaligned address, or the last
+// bytes of one whose size is not a multiple of 4), the bool is read alone:
+// no load leaves the tensor
+__device__ __forceinline__ int field_at(const void* p, size_t i, bool is_bool, size_t n) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t a = base + (is_bool ? i : 4 * i);
+  const uintptr_t word = a & ~(uintptr_t)3;
+  if (is_bool && (word < base || word + 4 > base + n))
+    return *reinterpret_cast<const uint8_t*>(a) != 0;
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(word);
+  return is_bool ? ((w >> (8 * (a & 3))) & 0xff) != 0 : (int)w;
 }
 
 __constant__ float c_pretab[22];
@@ -70,131 +106,290 @@ __constant__ float c_is_l[7];
 __constant__ float c_is_r[7];
 __constant__ int c_long_start[6][22];
 __constant__ int c_short_start3[6][13];
-__device__ uint8_t g_long_sfb[6][kLines];   // line -> long band
-__device__ uint8_t g_req_short[6][kLines];  // line -> sfb*3+win (requantize)
-__device__ uint8_t g_is_short[6][kLines];   // line -> sfb*3+win (intensity)
+// per-line maps [map][variant][line]: long band; sfb*3+win (requantize);
+// sfb*3+win (intensity)
+__device__ __align__(16) uint8_t g_maps[3][6][kLines];
+
+// A block of G granules: items of span_for(G) lines of both channels,
+// threads_for(G) threads, so that a small tile still has a thread a line
+// or two and a large one a thread per 4 lines of several granules.
+__host__ __device__ constexpr int span_for(int G) { return G == 1 ? 1 : G == 2 ? 2 : 4; }
+__host__ __device__ constexpr int threads_for(int G) { return G <= 2 ? kLines : kLines / 2; }
+
+// side word `wd` of a granule whose sidecar bytes start at s8 (int8
+// interface and wire: 22 little-endian meta words, then one byte each)
+__device__ __forceinline__ int side8_word(const uint8_t* s8, int wd) {
+  return wd < 22 ? s8[2 * wd] | (s8[2 * wd + 1] << 8) : s8[44 + wd - 22];
+}
+
+// N = 1, 2, 4 or 8 bytes at p (N-byte aligned), little-endian, in the
+// low bytes of .x, then .y
+template <int N>
+__device__ __forceinline__ uint2 load_n(const void* p) {
+  if constexpr (N == 8) return *static_cast<const uint2*>(p);
+  else if constexpr (N == 4) return make_uint2(*static_cast<const uint32_t*>(p), 0);
+  else if constexpr (N == 2) return make_uint2(*static_cast<const uint16_t*>(p), 0);
+  else return make_uint2(*static_cast<const uint8_t*>(p), 0);
+}
+
+// the same at any address: one load where p is aligned, else narrower ones
+template <int N>
+__device__ __forceinline__ uint2 load_n_any(const uint8_t* p) {
+  if (!((uintptr_t)p & (N - 1))) return load_n<N>(p);
+  return make_uint2(gomp3::load4(p, N < 4 ? N : 4), N == 8 ? gomp3::load4(p + 4, 4) : 0);
+}
+
+// a granule's flags word (bit 0 MS, bit 1 intensity, bit 2 mono); the
+// GranuleBatch route keeps the three in words 1, 3 and 20, which the DSP
+// does not read otherwise
+template <int kLayout>
+__device__ __forceinline__ int flags_of(const int* sd) {
+  return kLayout == kBatch ? sd[1] | sd[3] << 1 | sd[20] << 2 : sd[1];
+}
+
+template <int kLayout, int G>
+__global__ void __launch_bounds__(threads_for(G), G <= 2 ? 2 : 4)
+requant_stereo_kernel(const Inputs in, const gomp3::Wire w, float* __restrict__ out,
+                      int32_t* __restrict__ ginfo, int T, int tiles_per_stream,
+                      int stereo, size_t granules) {
+  constexpr int kThreads = threads_for(G);
+  constexpr int kSpan = span_for(G);           // lines of an item
+  constexpr int kPer = kLines / kSpan;         // items of a granule
+  constexpr int kItems = G * kPer / kThreads;  // items of a thread
+  __shared__ int side[G][kSideWords];
+  __shared__ float a_long[G][2][22];
+  __shared__ float a_short[G][2][39];
+  __shared__ float d_long[G][2][22];  // intensity multiplier - 1, [left/right]
+  __shared__ float d_short[G][2][39];
+  __shared__ uint32_t stail[kLayout == kFused ? G * 2 * kTailWords : 1];  // the wire's tail
+
+  const int tid = threadIdx.x;
+  const int s = blockIdx.x / tiles_per_stream;
+  const int t0 = (blockIdx.x % tiles_per_stream) * G;
+  const int nv = min(G, T - t0);          // granules of the tile
+  const size_t g0 = (size_t)s * T + t0;   // flat index of its first granule
+
+  // -- A: every load of the tile --------------------------------------------
+#pragma unroll
+  for (int k = 0; k < G * kSideWords / kThreads + (G * kSideWords % kThreads != 0); k++) {
+    const int it = tid + k * kThreads;
+    const int j = it / kSideWords, wd = it % kSideWords;
+    if (it >= G * kSideWords || j >= nv) continue;
+    const size_t g = g0 + j;
+    int val;
+    if (kLayout == kInt8) {
+      val = side8_word(static_cast<const uint8_t*>(in.p[2]) + g * kSide8, wd);
+    } else if (kLayout == kFused) {
+      val = side8_word(w.side(s, t0 + j), wd);
+    } else if (kLayout == kInt16) {
+      val = static_cast<const int16_t*>(in.p[1])[g * kSideWords + wd];
+    } else {
+      // the side words of native/lib.py (SIDE_* / META_*), each from its
+      // field. The field is picked by predicated moves in word order, with
+      // no branch for a warp to diverge on, so the warp reaches its one
+      // load at once (a divergent if-chain made the Decoder-sized chunk
+      // wait on it). The three flags land in words 1, 3 and 20 (flags_of),
+      // read like the int32 fields (field_at); word 21 is not read.
+      const void* src = nullptr;
+      int n = 1, lo = 0;  // the field's elements a granule, its first word
+      bool flag = false;
+      if (wd == 0) src = in.p[9];
+      if (wd == 1) src = in.p[10], lo = 1, flag = true;  // ms_flag
+      if (wd == 2) src = in.p[12], lo = 2;
+      if (wd == 3) src = in.p[11], lo = 3, flag = true;  // is_flag
+      if (wd >= 4) src = in.p[3], n = 2, lo = 4;
+      if (wd >= 6) src = in.p[4], lo = 6;
+      if (wd >= 8) src = in.p[5], lo = 8;
+      if (wd >= 10) src = in.p[7], lo = 10;
+      if (wd >= 12) src = in.p[8], lo = 12;
+      if (wd >= 14) src = in.p[6], n = 6, lo = 14;
+      if (wd == 20) src = in.p[13], n = 1, lo = 20, flag = true;  // mono
+      if (wd == 21) src = nullptr;
+      if (wd >= 22) src = in.p[1], n = 44, lo = 22;
+      if (wd >= 66) src = in.p[2], n = 78, lo = 66;
+      // (a bool field holds one byte a granule: `granules`, S * T, bytes)
+      val = src ? field_at(src, g * n + wd - lo, flag, granules) : 0;
+    }
+    side[j][wd] = val;
+  }
+  // the spectra of this thread's items: raw[k][c] holds the item's lines
+  // of channel c, int16 values (.x, then .y) or, on a tail item of the
+  // int8 interface and the wire, int8 values (.x)
+  uint2 raw[kItems][2];
+#pragma unroll
+  for (int k = 0; k < kItems; k++) {
+    const int it = tid + k * kThreads;
+    const int j = it / kPer, l0 = it % kPer * kSpan;  // granule, first line
+    const size_t g = g0 + j;
+#pragma unroll
+    for (int c = 0; c < 2; c++) {
+      raw[k][c] = make_uint2(0, 0);
+      if (j >= nv) continue;
+      if (kLayout == kInt16 || kLayout == kBatch) {
+        raw[k][c] = load_n<2 * kSpan>(static_cast<const int16_t*>(in.p[0]) +
+                                      (g * 2 + c) * kLines + l0);
+      } else if (kLayout == kInt8) {
+        raw[k][c] = l0 < kHeadLines
+            ? load_n<2 * kSpan>(static_cast<const int16_t*>(in.p[1]) +
+                                (g * 2 + c) * kHeadLines + l0)
+            : load_n<kSpan>(static_cast<const int8_t*>(in.p[0]) +
+                            (g * 2 + c) * kTailLines + l0 - kHeadLines);
+      } else if (l0 < kHeadLines && c < w.nch) {  // the wire's head pairs
+        raw[k][c] = load_n_any<2 * kSpan>(w.head(s, t0 + j) + (c * kHeadLines + l0) * 2);
+      }
+    }
+  }
+  if (kLayout == kFused) gomp3::stage_tail<G, kThreads>(w, s, t0, stail, tid);
+  __syncthreads();
+
+  // each item's band indices (L1-resident maps), loaded here so that they
+  // arrive while B runs
+  uint32_t maps[kItems][3];
+#pragma unroll
+  for (int k = 0; k < kItems; k++) {
+    const int it = tid + k * kThreads;
+    const int j = it / kPer, l0 = it % kPer * kSpan;
+    const int v = j < nv ? min(max(side[j][0], 0), 5) : 0;
+#pragma unroll
+    for (int m = 0; m < 3; m++)
+      maps[k][m] = load_n<kSpan>(&g_maps[m][v][l0]).x;
+  }
+
+  // -- B: per-band values and ginfo -----------------------------------------
+  for (int it = tid; it < nv * 245; it += kThreads) {
+    const int j = it / 245, l = it % 245;
+    const int* sd = side[j];
+    const int v = min(max(sd[0], 0), 5);
+    const int flags = flags_of<kLayout>(sd);
+    const bool mono = flags & 4;
+    const int cls0 = sd[12];
+    if (l < 44) {
+      const int c = l / 22, k = l % 22;
+      const float sf_mult = sd[6 + c] != 0 ? 1.0f : 0.5f;
+      const float gain = 0.25f * ((float)sd[4 + c] - 210.0f);
+      a_long[j][c][k] = -(sf_mult * ((float)sd[22 + 22 * c + k] +
+                                     (float)sd[8 + c] * c_pretab[k])) + gain;
+    } else if (l < 122) {
+      const int c = (l - 44) / 39, k = (l - 44) % 39;
+      const float sf_mult = sd[6 + c] != 0 ? 1.0f : 0.5f;
+      const float gain = 0.25f * ((float)sd[4 + c] - 210.0f);
+      a_short[j][c][k] = -(sf_mult * (float)sd[66 + 39 * c + k]) + gain -
+                         2.0f * (float)sd[14 + 3 * c + k % 3];
+    } else if (l < 166) {
+      // long intensity bands (channel 0's geometry): 0..20 long, 0..7 mixed
+      const int c = (l - 122) / 22, k = (l - 122) % 22;
+      const int is_pos = sd[22 + k];
+      const int cap = cls0 == 0 ? 20 : (cls0 == 2 ? 7 : -1);
+      const bool apply = (flags & 2) && !mono && c_long_start[v][k] >= sd[2] &&
+                         k <= cap && is_pos < 7;
+      const int ip = max(is_pos, 0);
+      d_long[j][c][k] = (apply ? (c == 0 ? c_is_l[ip] : c_is_r[ip]) : 1.0f) - 1.0f;
+    } else if (l < 244) {
+      // short intensity bands: 0..11 short, 3..11 mixed
+      const int c = (l - 166) / 39, k = (l - 166) % 39, sfb = k / 3;
+      const int is_pos = sd[66 + k];
+      const int lo = cls0 == 1 ? 0 : (cls0 == 2 ? 3 : 13);
+      const bool apply = (flags & 2) && !mono &&
+                         c_short_start3[v][sfb] >= sd[2] && sfb >= lo &&
+                         sfb <= 11 && is_pos < 7;
+      const int ip = max(is_pos, 0);
+      d_short[j][c][k] = (apply ? (c == 0 ? c_is_l[ip] : c_is_r[ip]) : 1.0f) - 1.0f;
+    } else {
+      ginfo[g0 + j] = (sd[10] & 3) | (sd[11] & 3) << 2 | (sd[12] & 3) << 4 |
+                      (sd[13] & 3) << 6 | (mono ? 1 << 8 : 0);
+    }
+  }
+  __syncthreads();
+
+  // -- C: kSpan lines x 2 channels an item ------------------------------------
+#pragma unroll
+  for (int k = 0; k < kItems; k++) {
+    const int it = tid + k * kThreads;
+    const int j = it / kPer, l0 = it % kPer * kSpan;
+    if (j >= nv) continue;
+    const int* sd = side[j];
+    const int v = min(max(sd[0], 0), 5);
+    const int flags = flags_of<kLayout>(sd);
+    const bool mono = flags & 4;
+    const uint32_t lmap = maps[k][0], smap = maps[k][1], imap = maps[k][2];
+    const bool tail8 = (kLayout == kInt8 || kLayout == kFused) && l0 >= kHeadLines;
+    float x[2][kSpan];
+#pragma unroll
+    for (int c = 0; c < 2; c++) {
+      uint2 r = raw[k][c];
+      if (kLayout == kFused && tail8)
+        r = load_n<kSpan>(reinterpret_cast<const uint8_t*>(stail) +
+                          (j * 2 + c) * kTailLines + l0 - kHeadLines);
+      const int cls = sd[12 + c];
+#pragma unroll
+      for (int i = 0; i < kSpan; i++) {
+        const int l = l0 + i;
+        const int qv = tail8 ? (int)(int8_t)(r.x >> (8 * i))
+                             : (int)(int16_t)((i < 2 ? r.x : r.y) >> (16 * (i & 1)));
+        const int lsfb = (lmap >> (8 * i)) & 0xff;
+        const int ssfb = (smap >> (8 * i)) & 0xff;
+        const bool is_long = cls == 0 || (cls == 2 && l < 36);
+        const float a = is_long ? a_long[j][c][lsfb] : a_short[j][c][ssfb];
+        // sign * |x|^(4/3) * 2^a. For q == 0 the expression gives
+        // 0 * exp2f(-inf) = +0, which is what the branch skips to: the
+        // zero lines of a granule cost no exp2f/log2f
+        float mag = 0.0f;
+        if (qv != 0) mag = exp2f(a + (4.0f / 3.0f) * log2f(fabsf((float)qv)));
+        x[c][i] = (qv > 0 ? 1.0f : (qv < 0 ? -1.0f : 0.0f)) * mag;
+      }
+    }
+    if (stereo) {
+#pragma unroll
+      for (int i = 0; i < kSpan; i++) {
+        if ((flags & 1) && !mono) {
+          const float inv_sqrt2 = 0.70710677f;
+          const float xl = x[0][i], xr = x[1][i];
+          x[0][i] = (xl + xr) * inv_sqrt2;
+          x[1][i] = (xl - xr) * inv_sqrt2;
+        }
+        // without intensity stereo every delta is +0 and the product is
+        // exactly 1: skipped
+        if ((flags & 2) && !mono) {
+          const int lsfb = (lmap >> (8 * i)) & 0xff;
+          const int isfb = (imap >> (8 * i)) & 0xff;
+#pragma unroll
+          for (int c = 0; c < 2; c++)
+            x[c][i] *= (1.0f + d_long[j][c][lsfb]) * (1.0f + d_short[j][c][isfb]);
+        }
+      }
+    }
+    const size_t g = g0 + j;
+#pragma unroll
+    for (int c = 0; c < 2; c++) {
+      float* o = out + (g * 2 + c) * kLines + l0;
+      if constexpr (kSpan == 4)
+        *reinterpret_cast<float4*>(o) = make_float4(x[c][0], x[c][1], x[c][2], x[c][3]);
+      else if constexpr (kSpan == 2)
+        *reinterpret_cast<float2*>(o) = make_float2(x[c][0], x[c][1]);
+      else
+        *o = x[c][0];
+    }
+  }
+}
+
+template <int kLayout, int G>
+cudaError_t launch(const Inputs& in, const gomp3::Wire& w, float* out, int32_t* ginfo,
+                   int S, int T, int stereo, cudaStream_t st) {
+  const int tiles = (T + G - 1) / G;
+  requant_stereo_kernel<kLayout, G><<<S * tiles, threads_for(G), 0, st>>>(
+      in, w, out, ginfo, T, tiles, stereo, (size_t)S * T);
+  return cudaGetLastError();
+}
 
 template <int kLayout>
-__global__ void __launch_bounds__(kLines)
-requant_stereo_kernel(const Inputs in, float* __restrict__ out,
-                      int32_t* __restrict__ ginfo, int stereo) {
-  const int g = blockIdx.x;   // granule: stream * T + t
-  const int l = threadIdx.x;  // line
-  __shared__ int side[kSideWords];
-  __shared__ float a_long[2][22];
-  __shared__ float a_short[2][39];
-  __shared__ float d_long[2][22];   // intensity multiplier - 1, [left/right]
-  __shared__ float d_short[2][39];
-
-  if (kLayout == kInt8) {
-    const uint8_t* s8 = static_cast<const uint8_t*>(in.p[2]) + (size_t)g * kSide8;
-    if (l < 22) side[l] = s8[2 * l] | (s8[2 * l + 1] << 8);
-    else if (l < kSideWords) side[l] = s8[44 + l - 22];
-  } else if (kLayout == kInt16) {
-    const int16_t* s16 = static_cast<const int16_t*>(in.p[1]) + (size_t)g * kSideWords;
-    if (l < kSideWords) side[l] = s16[l];
-  } else {
-    // the side words of native/lib.py (SIDE_* / META_*), each from its
-    // field. Each thread picks its source first and loads after the branches
-    // have merged: one load instruction per warp, so a warp waits on memory
-    // once (a load in each branch would wait once per branch taken).
-    const size_t g2 = (size_t)g * 2;
-    const void* src = nullptr;  // null: a word the DSP does not read (3, 20, 21)
-    size_t i = 0;
-    if (l == 0) src = in.p[9], i = g;
-    else if (l == 2) src = in.p[12], i = g;
-    else if (l < 4) {}
-    else if (l < 6) src = in.p[3], i = g2 + l - 4;
-    else if (l < 8) src = in.p[4], i = g2 + l - 6;
-    else if (l < 10) src = in.p[5], i = g2 + l - 8;
-    else if (l < 12) src = in.p[7], i = g2 + l - 10;
-    else if (l < 14) src = in.p[8], i = g2 + l - 12;
-    else if (l < 20) src = in.p[6], i = (size_t)g * 6 + l - 14;
-    else if (l < 22) {}
-    else if (l < 66) src = in.p[1], i = (size_t)g * 44 + l - 22;
-    else if (l < kSideWords) src = in.p[2], i = (size_t)g * 78 + l - 66;
-    if (l < kSideWords && l != 1) side[l] = src ? i32_at(src, i) : 0;
-    // word 1, the flags, from a warp that loads nothing else
-    if (l == kFlagThread)
-      side[1] = flag_at(in.p[10], g) | flag_at(in.p[11], g) << 1 | flag_at(in.p[13], g) << 2;
+cudaError_t launch_tile(int G, const Inputs& in, const gomp3::Wire& w, float* out,
+                        int32_t* ginfo, int S, int T, int stereo, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<kLayout, 1>(in, w, out, ginfo, S, T, stereo, st);
+    case 2: return launch<kLayout, 2>(in, w, out, ginfo, S, T, stereo, st);
+    case 4: return launch<kLayout, 4>(in, w, out, ginfo, S, T, stereo, st);
+    default: return cudaErrorInvalidValue;
   }
-  __syncthreads();
-
-  const int v = min(max(side[0], 0), 5);
-  const int flags = side[1];
-  const bool mono = flags & 4;
-  const int cls0 = side[12];
-  if (l < 44) {
-    const int c = l / 22, k = l % 22;
-    const float sf_mult = side[6 + c] != 0 ? 1.0f : 0.5f;
-    const float gain = 0.25f * ((float)side[4 + c] - 210.0f);
-    a_long[c][k] = -(sf_mult * ((float)side[22 + 22 * c + k] +
-                                (float)side[8 + c] * c_pretab[k])) + gain;
-  } else if (l < 122) {
-    const int c = (l - 44) / 39, k = (l - 44) % 39;
-    const float sf_mult = side[6 + c] != 0 ? 1.0f : 0.5f;
-    const float gain = 0.25f * ((float)side[4 + c] - 210.0f);
-    a_short[c][k] = -(sf_mult * (float)side[66 + 39 * c + k]) + gain -
-                    2.0f * (float)side[14 + 3 * c + k % 3];
-  } else if (l < 166) {
-    // long intensity bands (channel 0's geometry): 0..20 long, 0..7 mixed
-    const int c = (l - 122) / 22, k = (l - 122) % 22;
-    const int is_pos = side[22 + k];
-    const int cap = cls0 == 0 ? 20 : (cls0 == 2 ? 7 : -1);
-    const bool apply = (flags & 2) && !mono && c_long_start[v][k] >= side[2] &&
-                       k <= cap && is_pos < 7;
-    const int ip = max(is_pos, 0);
-    d_long[c][k] = (apply ? (c == 0 ? c_is_l[ip] : c_is_r[ip]) : 1.0f) - 1.0f;
-  } else if (l < 244) {
-    // short intensity bands: 0..11 short, 3..11 mixed
-    const int c = (l - 166) / 39, k = (l - 166) % 39, sfb = k / 3;
-    const int is_pos = side[66 + k];
-    const int lo = cls0 == 1 ? 0 : (cls0 == 2 ? 3 : 13);
-    const bool apply = (flags & 2) && !mono &&
-                       c_short_start3[v][sfb] >= side[2] && sfb >= lo &&
-                       sfb <= 11 && is_pos < 7;
-    const int ip = max(is_pos, 0);
-    d_short[c][k] = (apply ? (c == 0 ? c_is_l[ip] : c_is_r[ip]) : 1.0f) - 1.0f;
-  } else if (l == 244) {
-    ginfo[g] = (side[10] & 3) | (side[11] & 3) << 2 | (side[12] & 3) << 4 |
-               (side[13] & 3) << 6 | (mono ? 1 << 8 : 0);
-  }
-  __syncthreads();
-
-  const int lsfb = g_long_sfb[v][l];
-  const int ssfb = g_req_short[v][l];
-  float x[2];
-#pragma unroll
-  for (int c = 0; c < 2; c++) {
-    int q;
-    if (kLayout == kInt8) {
-      q = l < kHead
-              ? static_cast<const int16_t*>(in.p[1])[(size_t)g * 2 * kHead + c * kHead + l]
-              : static_cast<const int8_t*>(in.p[0])[(size_t)g * 2 * kTail + c * kTail + l - kHead];
-    } else {  // int16 spectra [n][2][576], in both other layouts
-      q = static_cast<const int16_t*>(in.p[0])[(size_t)g * 2 * kLines + c * kLines + l];
-    }
-    const int cls = side[12 + c];
-    const bool is_long = cls == 0 || (cls == 2 && l < 36);
-    const float a = is_long ? a_long[c][lsfb] : a_short[c][ssfb];
-    // |x|^(4/3) * 2^a; q == 0 gives log2f(0) = -inf and exp2f(-inf) = 0
-    const float mag = exp2f(a + (4.0f / 3.0f) * log2f(fabsf((float)q)));
-    x[c] = (q > 0 ? 1.0f : (q < 0 ? -1.0f : 0.0f)) * mag;
-  }
-  if (stereo) {
-    if ((flags & 1) && !mono) {
-      const float inv_sqrt2 = 0.70710677f;
-      const float l0 = x[0], r0 = x[1];
-      x[0] = (l0 + r0) * inv_sqrt2;
-      x[1] = (l0 - r0) * inv_sqrt2;
-    }
-    const int isfb = g_is_short[v][l];
-#pragma unroll
-    for (int c = 0; c < 2; c++)
-      x[c] *= (1.0f + d_long[c][lsfb]) * (1.0f + d_short[c][isfb]);
-  }
-  out[((size_t)g * 2 + 0) * kLines + l] = x[0];
-  out[((size_t)g * 2 + 1) * kLines + l] = x[1];
 }
 
 }  // namespace
@@ -215,34 +410,40 @@ int gomp3_requant_stereo_init(int device, const float* pretab, const float* is_l
   cudaMemcpyToSymbol(c_is_r, is_r, sizeof(float) * 7);
   cudaMemcpyToSymbol(c_long_start, long_start, sizeof(int32_t) * 6 * 22);
   cudaMemcpyToSymbol(c_short_start3, short_start3, sizeof(int32_t) * 6 * 13);
-  cudaMemcpyToSymbol(g_long_sfb, long_sfb, 6 * kLines);
-  cudaMemcpyToSymbol(g_req_short, req_short, 6 * kLines);
-  cudaMemcpyToSymbol(g_is_short, is_short, 6 * kLines);
+  cudaMemcpyToSymbol(g_maps, long_sfb, 6 * kLines, 0);
+  cudaMemcpyToSymbol(g_maps, req_short, 6 * kLines, 6 * kLines);
+  cudaMemcpyToSymbol(g_maps, is_short, 6 * kLines, 2 * 6 * kLines);
   return (int)cudaGetLastError();
 }
 
 // layout: a Layout; inputs: host array of the layout's device pointers
-// (2, 3 or 14, in the order above). out f32 [n][2][576], ginfo i32 [n];
-// n = S * T granules.
+// (2, 3, 14 or 1, in the order above). out f32 [S][T][2][576], ginfo i32
+// [S][T]. tile: granules a block, 1, 2 or 4. tail_lines (0..512) and
+// nch (1 or 2): the wire's, read only by the fused layout. Spectra and
+// head16 8-byte aligned, tail8 4-byte aligned; the wire at any address.
+// S == 0 or T == 0 launches nothing.
 int gomp3_requant_stereo(int device, int layout, const void* const* inputs,
-                         float* out, int32_t* ginfo, int n_granules, int stereo,
-                         void* stream) {
+                         float* out, int32_t* ginfo, int S, int T, int tile,
+                         int stereo, int tail_lines, int nch, void* stream) {
   gomp3::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const int count = layout == kInt16 ? 2 : layout == kInt8 ? 3 : layout == kBatch ? kMaxInputs : 0;
-  if (count == 0) return (int)cudaErrorInvalidValue;
-  if (n_granules > 0) {
-    Inputs in = {};
-    for (int i = 0; i < count; i++) in.p[i] = inputs[i];
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (layout == kInt16)
-      requant_stereo_kernel<kInt16><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
-    else if (layout == kInt8)
-      requant_stereo_kernel<kInt8><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
-    else
-      requant_stereo_kernel<kBatch><<<n_granules, kLines, 0, s>>>(in, out, ginfo, stereo);
+  const int count = layout == kInt16 ? 2 : layout == kInt8 ? 3
+                  : layout == kBatch ? kMaxInputs : layout == kFused ? 1 : 0;
+  if (count == 0 || S < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  if (layout == kFused && (tail_lines < 0 || tail_lines > kTailLines || (nch != 1 && nch != 2)))
+    return (int)cudaErrorInvalidValue;
+  if (S == 0 || T == 0) return (int)cudaGetLastError();
+  Inputs in = {};
+  for (int i = 0; i < count; i++) in.p[i] = inputs[i];
+  gomp3::Wire w = {static_cast<const uint8_t*>(in.p[0]),
+                   gomp3::wire_row_bytes(T, tail_lines, nch), T, tail_lines, nch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (layout) {
+    case kInt16: return (int)launch_tile<kInt16>(tile, in, w, out, ginfo, S, T, stereo, s);
+    case kInt8: return (int)launch_tile<kInt8>(tile, in, w, out, ginfo, S, T, stereo, s);
+    case kBatch: return (int)launch_tile<kBatch>(tile, in, w, out, ginfo, S, T, stereo, s);
+    default: return (int)launch_tile<kFused>(tile, in, w, out, ginfo, S, T, stereo, s);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -243,7 +243,8 @@ int gomp3_synth_init(int device, const float* nt, const float* dtbl) {
 
 // x18 f32 [S][T][2][32][18] (16-byte aligned), ginfo i32 [S][T], fifo_in
 // f32 [S][2][16][64], valid i32 [S] -> pcm i16 [S][T*576][2], fifo_out f32
-// [S][2][16][64]. G granules per block, 1..4.
+// [S][2][16][64]. G granules per block, 1..4. T == 0 launches nothing and
+// copies fifo_in to fifo_out on the stream.
 int gomp3_synth(int device, const float* x18, const int32_t* ginfo,
                 const float* fifo_in, const int32_t* valid, int16_t* pcm,
                 float* fifo_out, int S, int T, int G, void* stream) {
@@ -254,6 +255,9 @@ int gomp3_synth(int device, const float* x18, const int32_t* ginfo,
     dim3 grid((T + G - 1) / G, S);
     synth_kernel<<<grid, kThreads, smem_bytes(G), static_cast<cudaStream_t>(stream)>>>(
         x18, ginfo, fifo_in, valid, pcm, fifo_out, T, G);
+  } else if (S > 0) {
+    cudaMemcpyAsync(fifo_out, fifo_in, sizeof(float) * S * 2 * 16 * 64,
+                    cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream));
   }
   return (int)cudaGetLastError();
 }

@@ -242,6 +242,22 @@ def _i16p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
 
 
+def _check_array(name: str, a, shape, dtype) -> None:
+    """Raise unless `a` is a C-contiguous numpy array of `dtype` and
+    `shape` (None: any size on that axis). Explicit raises, not asserts:
+    these checks guard raw C pointer calls and must survive `python -O`."""
+    if not isinstance(a, np.ndarray):
+        raise TypeError(f"{name}: expected a numpy array, got {type(a).__name__}")
+    if a.dtype != dtype:
+        raise TypeError(f"{name}: dtype {a.dtype}, expected {np.dtype(dtype)}")
+    if a.ndim != len(shape) or any(
+        want is not None and got != want for got, want in zip(a.shape, shape)
+    ):
+        raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
+    if not a.flags.c_contiguous:
+        raise ValueError(f"{name}: not C-contiguous")
+
+
 class NativeParser:
     """Streaming granule parser over an in-memory MP3 byte buffer.
 
@@ -300,15 +316,11 @@ class NativeParser:
         """Parse granules directly into caller-provided C-contiguous arrays
         (shapes [cap,2,576], [cap,2,22], [cap,2,39], [cap,24], int32).
         Returns the number of granules produced (0 = end of audio)."""
+        _check_array("spectra", spectra, (None, 2, 576), np.int16)
         cap = spectra.shape[0]
-        for a, shape, dt in (
-            (spectra, (cap, 2, 576), np.int16),
-            (sfl, (cap, 2, 22), np.int32),
-            (sfs, (cap, 2, 39), np.int32),
-            (meta, (cap, META_WIDTH), np.int32),
-        ):
-            assert a.shape == shape and a.dtype == dt, (a.shape, a.dtype)
-            assert a.flags.c_contiguous
+        _check_array("sfl", sfl, (cap, 2, 22), np.int32)
+        _check_array("sfs", sfs, (cap, 2, 39), np.int32)
+        _check_array("meta", meta, (cap, META_WIDTH), np.int32)
         n = self._lib.gmp_parse(
             self._p, cap, _i16p(spectra), _i32p(sfl), _i32p(sfs), _i32p(meta)
         )
@@ -322,10 +334,9 @@ class NativeParser:
         spectra [cap, 1152] int16 (post-reorder) and side [cap, SIDE_WIDTH]
         int16 (all metadata + scalefactors). Two flat, C-contiguous arrays =
         the cheapest possible H2D transfer. Returns granules produced."""
+        _check_array("spectra", spectra, (None, 1152), np.int16)
         cap = spectra.shape[0]
-        assert spectra.shape == (cap, 1152) and spectra.dtype == np.int16
-        assert side.shape == (cap, SIDE_WIDTH) and side.dtype == np.int16
-        assert spectra.flags.c_contiguous and side.flags.c_contiguous
+        _check_array("side", side, (cap, SIDE_WIDTH), np.int16)
         n = self._lib.gmp_parse_packed(self._p, cap, _i16p(spectra), _i16p(side))
         if n < 0:
             err = self._lib.gmp_error(self._p).decode()
@@ -347,12 +358,10 @@ class NativeParser:
         so recovery means re-parsing the stream from the start with
         parse_packed_into (decode_corpus_fast does exactly that); this
         parser should be discarded."""
+        _check_array("tail8", tail8, (None, SP8_TAIL_WIDTH), np.int8)
         cap = tail8.shape[0]
-        assert tail8.shape == (cap, SP8_TAIL_WIDTH) and tail8.dtype == np.int8
-        assert head16.shape == (cap, HEAD_WIDTH) and head16.dtype == np.int16
-        assert side8.shape == (cap, SIDE8_WIDTH) and side8.dtype == np.uint8
-        for a in (tail8, head16, side8):
-            assert a.flags.c_contiguous
+        _check_array("head16", head16, (cap, HEAD_WIDTH), np.int16)
+        _check_array("side8", side8, (cap, SIDE8_WIDTH), np.uint8)
         n = self._lib.gmp_parse_packed8(
             self._p,
             cap,
@@ -443,23 +452,20 @@ class BatchParser:
         the many-call batching (each worker touches only its own rows of
         the arrays and its own parsers — GIL-free, byte-identical to
         serial)."""
+        _check_array("tail8", tail8, (None, None, SP8_TAIL_WIDTH), np.int8)
         s, cap = tail8.shape[0], tail8.shape[1]
         if hi is None:
             hi = s
-        assert tail8.shape == (s, cap, SP8_TAIL_WIDTH) and tail8.dtype == np.int8
-        assert head16.shape == (s, cap, HEAD_WIDTH) and head16.dtype == np.int16
-        assert side8.shape == (s, cap, SIDE8_WIDTH) and side8.dtype == np.uint8
-        assert valids.shape == (s,) and valids.dtype == np.int32
-        # explicit raise (not assert): this bound guards raw C pointer
-        # arithmetic over the handles array and the output rows, and must
-        # survive `python -O`
+        _check_array("head16", head16, (s, cap, HEAD_WIDTH), np.int16)
+        _check_array("side8", side8, (s, cap, SIDE8_WIDTH), np.uint8)
+        _check_array("valids", valids, (s,), np.int32)
+        # this bound guards raw C pointer arithmetic over the handles array
+        # and the output rows
         if not (0 <= lo <= hi <= s == len(self.parsers)):
             raise ValueError(
                 f"lane block [{lo}, {hi}) out of range for "
                 f"{len(self.parsers)} parsers / {s} rows"
             )
-        for a in (tail8, head16, side8, valids):
-            assert a.flags.c_contiguous
         if lo == hi:
             return 0
         err_stream = ctypes.c_int32(-1)
@@ -575,7 +581,8 @@ class NativeDsp:
     def set_state(self, store: np.ndarray, v_vec: np.ndarray) -> None:
         store = np.ascontiguousarray(store, np.float32)
         v_vec = np.ascontiguousarray(v_vec, np.float32)
-        assert store.shape == (2, 32, 18) and v_vec.shape == (2, 1024)
+        _check_array("store", store, (2, 32, 18), np.float32)
+        _check_array("v_vec", v_vec, (2, 1024), np.float32)
         self._lib.gmp_dsp_set_state(
             self._s,
             store.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
@@ -590,11 +597,12 @@ class NativeDsp:
         meta: np.ndarray,
     ) -> np.ndarray:
         """Decode n granule records -> int16 PCM [n*576, 2]."""
+        _check_array("spectra", spectra, (None, 2, 576), np.int16)
         n = spectra.shape[0]
+        _check_array("sfl", sfl, (n, 2, 22), np.int32)
+        _check_array("sfs", sfs, (n, 2, 39), np.int32)
+        _check_array("meta", meta, (n, META_WIDTH), np.int32)
         pcm = np.empty((n * 576, 2), dtype=np.int16)
-        assert spectra.dtype == np.int16 and spectra.flags.c_contiguous
-        for a in (sfl, sfs, meta):
-            assert a.dtype == np.int32 and a.flags.c_contiguous
         self._lib.gmp_dsp_decode(
             self._s,
             n,

@@ -105,7 +105,7 @@ def load():
     p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     for name, args in (
         ("gomp3_requant_stereo_init", [i] + [p] * 8),
-        ("gomp3_requant_stereo", [i, i, pp, p, p, i, i, p]),
+        ("gomp3_requant_stereo", [i, i, pp, p, p, i, i, i, i, i, i, p]),
         ("gomp3_hybrid_init", [i] + [p] * 5),
         ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, i, i, p]),
         ("gomp3_synth_init", [i, p, p]),

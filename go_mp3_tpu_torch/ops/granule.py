@@ -8,8 +8,9 @@ ops/kernels.py against it on the card:
   antialias -> IMDCT -> overlap-add -> freq inv (kernel K2, hybrid.cu)
   polyphase matrixing + FIR -> int16, state    (kernel K3, synth.cu)
 
-and in front of them, on the corpus path, the fused-wire unpack (kernel
-K4, unpack_fused.cu; plain versions unpack_fused_ref and
+K1 also reads the fused wire rows of the corpus path (plain version
+requant_stereo_fused_ref), whose unpack alone is kernel K4
+(unpack_fused.cu; plain versions unpack_fused_ref and
 unpack_fused_mono_ref).
 
 Every tensor carries a leading stream axis written out: [S, T, ...] for S
@@ -403,7 +404,9 @@ def requant_stereo_ref(b: GranuleBatch, stereo: bool = True):
 def hybrid_ref(x, ginfo, store, valid):
     """K2's plain version: antialias, IMDCT, overlap-add, frequency
     inversion -> (x18 f32 [S, T, 2, 32, 18], store after `valid` granules,
-    unchanged where valid == 0)."""
+    unchanged where valid == 0; a copy of it when T == 0)."""
+    if x.shape[1] == 0:
+        return x.new_empty((x.shape[0], 0, 2, 32, 18)), store.clone()
     bt, cls, _ = ginfo_fields(ginfo)
     raw = _imdct(bt, cls, _antialias(cls, x))
     out18, uppers = _overlap_fold(raw, store)
@@ -530,6 +533,14 @@ def unpack_fused_mono_ref(buf: torch.Tensor, t: int, tail_lines: int):
     """Mono fused rows -> the packed8 arrays, channel 1 zero
     (go_mp3_tpu/ops/granule.py:696-723)."""
     return _unpack_fused_rows(buf, t, tail_lines, nch=1)
+
+
+def requant_stereo_fused_ref(buf: torch.Tensor, t: int, tail_lines: int,
+                             mono: bool = False, stereo: bool = True):
+    """K1's plain version on the fused wire rows: the unpack, then
+    requant_stereo_ref."""
+    unpack = unpack_fused_mono_ref if mono else unpack_fused_ref
+    return requant_stereo_ref(batch_from_packed8(*unpack(buf, t, tail_lines)), stereo)
 
 
 def batch_from_any(packed) -> GranuleBatch:

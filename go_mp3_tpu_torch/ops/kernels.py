@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels K1-K3 (csrc/*.cu).
+"""Wrappers of the hand-written CUDA kernels K1-K4 (csrc/*.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
  - on CPU tensors, runs the kernel's plain PyTorch version (ops/granule.py);
@@ -11,13 +11,14 @@ It allocates outputs and scratch with torch.empty and counts its launches
 in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
 
   requant_stereo  K1  csrc/requant_stereo.cu  load, requantize, stereo
+                      (requant_stereo_fused: the same kernel on the wire)
   hybrid          K2  csrc/hybrid.cu          antialias .. freq inversion
   synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
                                               (fused; v stays on chip)
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
 
 decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk; decode_chunk_fused
-puts K4 in front of them.
+runs the same chain with K1 reading the fused wire rows itself.
 """
 
 from __future__ import annotations
@@ -91,58 +92,9 @@ def _route(device: torch.device) -> bool:
     raise ValueError(f"unsupported device {device}")
 
 
-# K1's input layouts (csrc/requant_stereo.cu Layout)
-_INT16, _INT8, _BATCH = 0, 1, 2
-
-
-def requant_stereo(packed, stereo: bool = True):
-    """K1 over one of three inputs, each [S, T, ...]:
-     - the int16 interface (spectra i16 [S,T,1152], side i16 [S,T,144]);
-     - the int8 interface (tail8 i8 [S,T,1024], head16 i16 [S,T,128],
-       side8 u8 [S,T,168]);
-     - a GranuleBatch, the JAX kernel's own input, each field in its own
-       dtype (ops/granule.py BATCH_FIELDS), told apart by its type
-    -> (x f32 [S, T, 2, 576], ginfo int32 [S, T]). stereo=False stops
-    after requantize, to check the two parts of K1 apart.
-    `requant_stereo.batch_launches` counts the launches of the GranuleBatch
-    route among `requant_stereo.launches`."""
-    if isinstance(packed, G.GranuleBatch):
-        layout = _BATCH
-        dev = packed.spectra.device
-        s_dim, t_dim = packed.spectra.shape[:2]
-        for name, t in zip(packed._fields, packed):
-            dtype, inner = G.BATCH_FIELDS[name]
-            _expect(t, name, dtype, (s_dim, t_dim, *inner), dev)
-    else:
-        if len(packed) == 2:
-            layout = _INT16
-            specs = [("spectra", torch.int16, 1152), ("side", torch.int16, SIDE_WIDTH)]
-        elif len(packed) == 3:
-            layout = _INT8
-            specs = [("tail8", torch.int8, SP8_TAIL_WIDTH),
-                     ("head16", torch.int16, HEAD_WIDTH),
-                     ("side8", torch.uint8, SIDE8_WIDTH)]
-        else:
-            raise ValueError(f"packed chunk has {len(packed)} arrays, expected "
-                             "2 or 3, or a GranuleBatch")
-        dev = packed[0].device
-        s_dim, t_dim = packed[0].shape[:2]
-        for t, (name, dtype, width) in zip(packed, specs):
-            _expect(t, name, dtype, (s_dim, t_dim, width), dev)
-    if not _route(dev):
-        return G.requant_stereo_ref(G.batch_from_any(packed), stereo)
-    lib, idx = _library(dev)
-    out = torch.empty((s_dim, t_dim, 2, 576), dtype=torch.float32, device=dev)
-    ginfo = torch.empty((s_dim, t_dim), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed))(*(t.data_ptr() for t in packed))
-    _check_rc("requant_stereo", lib.gomp3_requant_stereo(
-        idx, layout, ptrs, out.data_ptr(), ginfo.data_ptr(), s_dim * t_dim,
-        int(stereo), torch.cuda.current_stream(dev).cuda_stream,
-    ))
-    requant_stereo.launches += 1
-    if layout == _BATCH:
-        requant_stereo.batch_launches += 1
-    return out, ginfo
+def _check_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: not {align}-byte aligned")
 
 
 _sm_counts: dict[int, int] = {}
@@ -155,29 +107,145 @@ def _sm_count(dev: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def run_length(units_per_run: int, t_dim: int, want: int) -> int:
-    """Granules per run of K2 and K3: the first of 4, 2, 1 at which the
-    chunk splits into at least `want` units of work (`units_per_run` units
-    for each run of granules). Longer runs share more of each run's extra
-    predecessor granule, and 4 was the fastest for both kernels at
-    64 x 240 on an H100. Neither kernel's result depends on it."""
-    g = 4
+def run_length(units_per_run: int, t_dim: int, want: int, longest: int = 4) -> int:
+    """Granules per run of K2 and K3, or per tile of K1: the first
+    of longest, longest / 2, ..., 1 at which the chunk splits into at least
+    `want` units of work (`units_per_run` units for each run of granules).
+    Longer runs of K2 and K3 share more of each run's extra predecessor
+    granule, and 4 was the fastest for both kernels at 64 x 240 on an H100.
+    No kernel's result depends on it."""
+    g = longest
     while g > 1 and units_per_run * -(-t_dim // g) < want:
         g //= 2
     return g
 
 
-def _check_aligned(t: torch.Tensor, name: str) -> None:
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned")
+# -- K1 ------------------------------------------------------------------------
+
+# K1's input layouts (csrc/requant_stereo.cu Layout), and the routes whose
+# launches are counted apart (all_counts)
+_INT16, _INT8, _BATCH, _FUSED = 0, 1, 2, 3
+_LAYOUT_ROUTE = {_INT16: "int16", _BATCH: "granule_batch", _FUSED: "fused"}
+# granules a block: every tile K1 takes (csrc/requant_stereo.cu)
+K1_TILES = (1, 2, 4)
+
+
+def k1_tile(dev: torch.device, s_dim: int, t_dim: int) -> int:
+    """K1's granules a block: the longest tile, up to 4 (the fastest at
+    64 x 240 on an H100, on every input), that still gives two blocks per
+    SM."""
+    return run_length(s_dim, t_dim, 2 * _sm_count(dev), K1_TILES[-1])
+
+
+def _k1_inputs(packed):
+    """Check one of K1's three array inputs -> (layout, tensors, S, T)."""
+    if isinstance(packed, G.GranuleBatch):
+        dev = packed.spectra.device
+        s_dim, t_dim = packed.spectra.shape[:2]
+        for name, t in zip(packed._fields, packed):
+            dtype, inner = G.BATCH_FIELDS[name]
+            _expect(t, name, dtype, (s_dim, t_dim, *inner), dev)
+        return _BATCH, tuple(packed), s_dim, t_dim
+    if len(packed) == 2:
+        layout = _INT16
+        specs = [("spectra", torch.int16, 1152), ("side", torch.int16, SIDE_WIDTH)]
+    elif len(packed) == 3:
+        layout = _INT8
+        specs = [("tail8", torch.int8, SP8_TAIL_WIDTH),
+                 ("head16", torch.int16, HEAD_WIDTH),
+                 ("side8", torch.uint8, SIDE8_WIDTH)]
+    else:
+        raise ValueError(f"packed chunk has {len(packed)} arrays, expected "
+                         "2 or 3, or a GranuleBatch")
+    dev = packed[0].device
+    s_dim, t_dim = packed[0].shape[:2]
+    for t, (name, dtype, width) in zip(packed, specs):
+        _expect(t, name, dtype, (s_dim, t_dim, width), dev)
+    return layout, tuple(packed), s_dim, t_dim
+
+
+def requant_stereo(packed, stereo: bool = True):
+    """K1 over one of three inputs, each [S, T, ...]:
+     - the int16 interface (spectra i16 [S,T,1152], side i16 [S,T,144]);
+     - the int8 interface (tail8 i8 [S,T,1024], head16 i16 [S,T,128],
+       side8 u8 [S,T,168]);
+     - a GranuleBatch, the JAX kernel's own input, each field in its own
+       dtype (ops/granule.py BATCH_FIELDS), told apart by its type
+    -> (x f32 [S, T, 2, 576], ginfo int32 [S, T]). stereo=False stops
+    after requantize, to check the two parts of K1 apart. Its fourth
+    input, the fused wire, is requant_stereo_fused's.
+    `requant_stereo.int16_launches`, `.batch_launches` and
+    `.fused_launches` count the launches of the int16, GranuleBatch and
+    wire routes among `requant_stereo.launches`."""
+    layout, tensors, s_dim, t_dim = _k1_inputs(packed)
+    dev = tensors[0].device
+    if not _route(dev):
+        return G.requant_stereo_ref(G.batch_from_any(packed), stereo)
+    return _requant_stereo_launch(layout, tensors, s_dim, t_dim, stereo,
+                                  k1_tile(dev, s_dim, t_dim))
+
+
+def _check_wire(buf: torch.Tensor, t: int, tail_lines: int, mono: bool) -> None:
+    if not 0 <= tail_lines <= wire.TAIL_LINES_FULL:
+        raise ValueError(f"tail_lines {tail_lines} outside 0..{wire.TAIL_LINES_FULL}")
+    if t < 0:
+        raise ValueError(f"t {t} < 0")
+    _expect(buf, "buf", torch.uint8,
+            (buf.shape[0], wire.stream_nbytes(t, tail_lines, mono)), buf.device)
+
+
+def requant_stereo_fused(buf: torch.Tensor, t: int, tail_lines: int,
+                         mono: bool = False, stereo: bool = True):
+    """K1 on the fused wire rows u8 [S, wire.stream_nbytes(t, tail_lines,
+    mono)] themselves (ops/wire.py) -> the (x, ginfo) of
+    requant_stereo(unpack_fused(buf, t, tail_lines, mono)), with no
+    unpacked copy in device memory: the fused corpus path's K1."""
+    _check_wire(buf, t, tail_lines, mono)
+    s_dim = buf.shape[0]
+    if not _route(buf.device):
+        return G.requant_stereo_fused_ref(buf, t, tail_lines, mono, stereo)
+    return _requant_stereo_launch(_FUSED, (buf,), s_dim, t, stereo,
+                                  k1_tile(buf.device, s_dim, t),
+                                  tail_lines, mono)
+
+
+def _requant_stereo_launch(layout, tensors, s_dim, t_dim, stereo, g: int,
+                           tail_lines: int = 0, mono: bool = False):
+    """K1's launch on checked CUDA tensors (the inputs of `layout` in
+    csrc/requant_stereo.cu's order), `g` granules a block (one of
+    K1_TILES; no output depends on it). S == 0 or T == 0 launches
+    nothing."""
+    dev = tensors[0].device
+    if layout in (_INT16, _BATCH):
+        _check_aligned(tensors[0], "spectra", 8)
+    elif layout == _INT8:
+        _check_aligned(tensors[0], "tail8", 4)
+        _check_aligned(tensors[1], "head16", 8)
+    out = torch.empty((s_dim, t_dim, 2, 576), dtype=torch.float32, device=dev)
+    ginfo = torch.empty((s_dim, t_dim), dtype=torch.int32, device=dev)
+    if not (s_dim and t_dim):
+        return out, ginfo
+    lib, idx = _library(dev)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    _check_rc("requant_stereo", lib.gomp3_requant_stereo(
+        idx, layout, ptrs, out.data_ptr(), ginfo.data_ptr(), s_dim, t_dim, g,
+        int(stereo), tail_lines, 1 if mono else 2,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    # the int8 interface has no count of its own: add_counts ignores "int8"
+    add_counts({"requant_stereo": 1, _LAYOUT_ROUTE.get(layout, "int8"): 1})
+    return out, ginfo
+
+
+# -- K2, K3 --------------------------------------------------------------------
 
 
 def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
            valid: torch.Tensor):
     """K2. x f32 [S,T,2,576], ginfo int32 [S,T], store f32 [S,2,32,18],
     valid int32 [S] (0 <= valid <= T) -> (x18 f32 [S,T,2,32,18], store
-    after valid granules). One warp per (stream, channel, run of
-    run_length granules)."""
+    after valid granules; a copy of it when T == 0). One warp per (stream,
+    channel, run of run_length granules)."""
     dev = x.device
     s_dim, t_dim = x.shape[:2]
     _expect(x, "x", torch.float32, (s_dim, t_dim, 2, 576), dev)
@@ -192,7 +260,8 @@ def hybrid(x: torch.Tensor, ginfo: torch.Tensor, store: torch.Tensor,
 
 def _hybrid_launch(x, ginfo, store, valid, g: int):
     """K2's launch on checked CUDA tensors, `g` granules a warp (any >= 1;
-    no output depends on it)."""
+    no output depends on it). T == 0 launches nothing: the C entry point
+    copies the store."""
     dev = x.device
     s_dim, t_dim = x.shape[:2]
     lib, idx = _library(dev)
@@ -205,7 +274,8 @@ def _hybrid_launch(x, ginfo, store, valid, g: int):
         x18.data_ptr(), store_out.data_ptr(), s_dim, t_dim, g, warps,
         torch.cuda.current_stream(dev).cuda_stream,
     ))
-    hybrid.launches += 1
+    if s_dim and t_dim:
+        hybrid.launches += 1
     return x18, store_out
 
 
@@ -213,8 +283,9 @@ def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
           valid: torch.Tensor, out: torch.Tensor | None = None):
     """K3. x18 f32 [S,T,2,32,18], ginfo int32 [S,T], v_fifo f32
     [S,2,16,64], valid int32 [S] -> (pcm int16 [S, T*576, 2], v_fifo
-    after valid granules). `out`, if given, receives the PCM. One block
-    per (stream, run of run_length granules)."""
+    after valid granules; a copy of it when T == 0). `out`, if given,
+    receives the PCM. One block per (stream, run of run_length
+    granules)."""
     dev = x18.device
     s_dim, t_dim = x18.shape[:2]
     _expect(x18, "x18", torch.float32, (s_dim, t_dim, 2, 32, 18), dev)
@@ -232,7 +303,8 @@ def synth(x18: torch.Tensor, ginfo: torch.Tensor, v_fifo: torch.Tensor,
 
 def _synth_launch(x18, ginfo, v_fifo, valid, out, g: int):
     """K3's launch on checked CUDA tensors, `g` granules a block (1-4; no
-    output depends on it)."""
+    output depends on it). T == 0 launches nothing: the C entry point
+    copies the FIFO."""
     dev = x18.device
     s_dim, t_dim = x18.shape[:2]
     lib, idx = _library(dev)
@@ -245,28 +317,31 @@ def _synth_launch(x18, ginfo, v_fifo, valid, out, g: int):
         pcm.data_ptr(), fifo_out.data_ptr(), s_dim, t_dim, g,
         torch.cuda.current_stream(dev).cuda_stream,
     ))
-    synth.launches += 1
+    if s_dim and t_dim:
+        synth.launches += 1
     return pcm, fifo_out
+
+
+# -- K4 ------------------------------------------------------------------------
 
 
 def unpack_fused(buf: torch.Tensor, t: int, tail_lines: int, mono: bool = False):
     """K4. Fused rows u8 [S, wire.stream_nbytes(t, tail_lines, mono)] ->
     (tail8 i8 [S,T,1024], head16 i16 [S,T,128], side8 u8 [S,T,168]), the
-    int8 interface of requant_stereo."""
-    dev = buf.device
-    s_dim = buf.shape[0]
-    if not 0 <= tail_lines <= wire.TAIL_LINES_FULL:
-        raise ValueError(f"tail_lines {tail_lines} outside 0..{wire.TAIL_LINES_FULL}")
-    _expect(buf, "buf", torch.uint8,
-            (s_dim, wire.stream_nbytes(t, tail_lines, mono)), dev)
-    if not _route(dev):
+    int8 interface of requant_stereo (JAX's public unpack_fused and
+    unpack_fused_mono). The corpus path does not run it:
+    requant_stereo_fused reads the wire itself."""
+    _check_wire(buf, t, tail_lines, mono)
+    if not _route(buf.device):
         ref = G.unpack_fused_mono_ref if mono else G.unpack_fused_ref
         return ref(buf, t, tail_lines)
-    lib, idx = _library(dev)
+    dev = buf.device
+    s_dim = buf.shape[0]
     tail8 = torch.empty((s_dim, t, SP8_TAIL_WIDTH), dtype=torch.int8, device=dev)
     head16 = torch.empty((s_dim, t, HEAD_WIDTH), dtype=torch.int16, device=dev)
     side8 = torch.empty((s_dim, t, SIDE8_WIDTH), dtype=torch.uint8, device=dev)
     if s_dim and t:
+        lib, idx = _library(dev)
         _check_rc("unpack_fused", lib.gomp3_unpack_fused(
             idx, buf.data_ptr(), tail8.data_ptr(), head16.data_ptr(),
             side8.data_ptr(), s_dim, t, tail_lines, 1 if mono else 2,
@@ -276,13 +351,20 @@ def unpack_fused(buf: torch.Tensor, t: int, tail_lines: int, mono: bool = False)
     return tail8, head16, side8
 
 
+# -- launch counts -------------------------------------------------------------
+
 KERNELS = (requant_stereo, hybrid, synth, unpack_fused)
+# K1's routes counted apart, among requant_stereo.launches (the int8
+# interface's are the rest)
+_K1_ROUTES = {"int16": "int16_launches", "granule_batch": "batch_launches",
+              "fused": "fused_launches"}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    requant_stereo.batch_launches = 0
+    for attr in _K1_ROUTES.values():
+        setattr(requant_stereo, attr, 0)
 
 
 reset_launch_counts()
@@ -292,23 +374,45 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def all_counts() -> dict[str, int]:
+    """launch_counts() and those of K1's int16, GranuleBatch and wire
+    routes ("int16", "granule_batch", "fused")."""
+    return {**launch_counts(),
+            **{r: getattr(requant_stereo, a) for r, a in _K1_ROUTES.items()}}
+
+
+def add_counts(delta: dict[str, int]) -> None:
+    """Add `delta` (keys of all_counts()) to the counts."""
+    for k in KERNELS:
+        k.launches += delta.get(k.__name__, 0)
+    for r, a in _K1_ROUTES.items():
+        setattr(requant_stereo, a, getattr(requant_stereo, a) + delta.get(r, 0))
+
+
+# -- the chain -----------------------------------------------------------------
+
+
 def decode_chunk(packed, state: G.DecodeState, valid: torch.Tensor,
                  out: torch.Tensor | None = None):
     """One [S, T] chunk of granules (any input of requant_stereo: either
     packed interface or a GranuleBatch) plus the state -> (pcm int16
-    [S, T*576, 2], state after each stream's valid granules). K1 -> K2 ->
-    K3; `out`, if given, receives the PCM (decode_chunk_impl and
-    decode_chunk_batch, go_mp3_tpu/ops/granule.py:493, :745, :758)."""
-    x, ginfo = requant_stereo(packed)
-    x18, store = hybrid(x, ginfo, state.store, valid)
-    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid, out=out)
-    return pcm, G.DecodeState(store=store, v_fifo=fifo)
+    [S, T*576, 2], state after each stream's valid granules; the state
+    itself, copied, when T == 0). K1 -> K2 -> K3; `out`, if given,
+    receives the PCM (decode_chunk_impl and decode_chunk_batch,
+    go_mp3_tpu/ops/granule.py:493, :745, :758)."""
+    return _chain(*requant_stereo(packed), state, valid, out)
 
 
 def decode_chunk_fused(buf: torch.Tensor, state: G.DecodeState,
                        valid: torch.Tensor, t: int, tail_lines: int,
                        mono: bool = False, out: torch.Tensor | None = None):
-    """decode_chunk over one chunk of fused rows: K4 -> K1 -> K2 -> K3
-    (decode_chunk_fused_batch_impl and decode_chunk_fused_mono_batch_impl,
+    """decode_chunk over one chunk of fused rows: K1 on the wire -> K2 ->
+    K3 (decode_chunk_fused_batch_impl and decode_chunk_fused_mono_batch_impl,
     go_mp3_tpu/ops/granule.py:726-741)."""
-    return decode_chunk(unpack_fused(buf, t, tail_lines, mono), state, valid, out)
+    return _chain(*requant_stereo_fused(buf, t, tail_lines, mono), state, valid, out)
+
+
+def _chain(x, ginfo, state: G.DecodeState, valid, out):
+    x18, store = hybrid(x, ginfo, state.store, valid)
+    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid, out=out)
+    return pcm, G.DecodeState(store=store, v_fifo=fifo)

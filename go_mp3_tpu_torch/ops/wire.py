@@ -16,8 +16,10 @@ One row per stream, in this order:
   side  the byte sidecar [T, 168].
 nch = 2 for a stereo row; nch = 1 for a mono row, whose channel 1 is all
 zero by the parser's contract and is rebuilt as zeros on the device.
-Kernel K4 (csrc/unpack_fused.cu) turns the rows back into the three packed
-arrays that K1 reads.
+On the card, K1's fused route (kernels.requant_stereo_fused,
+csrc/requant_stereo.cu) reads the rows themselves; kernel K4
+(csrc/unpack_fused.cu) serves only the public unpack_fused, which turns
+them back into K1's three int8-interface arrays.
 """
 
 from __future__ import annotations

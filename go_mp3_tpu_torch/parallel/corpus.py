@@ -19,9 +19,10 @@ fused=True (the default) is the production path:
    group decodes on its own, and results come back in the caller's order;
  - tail_buckets caps each group's shipped tail lines at the smallest
    bucket covering the nonzero lines (exact: the extent is scanned);
- - on the card K4 unpacks the wire and K1 -> K2 -> K3 decode it, chunk by
-   chunk (parallel/segment.py run_segment_eager), or with drain=k as one
-   captured CUDA graph per k-chunk segment (SegmentGraph);
+ - on the card K1 reads the wire rows themselves (requant_stereo_fused)
+   and K1 -> K2 -> K3 decode them, chunk by chunk (parallel/segment.py
+   run_segment_eager), or with drain=k as one captured CUDA graph per
+   k-chunk segment (SegmentGraph);
  - n_threads > 1 parses disjoint lane blocks in worker threads.
 fused=False is the three-array int8 interface; both paths drop to the int16
 interface when a stream's tail spectra overflow int8 (an input-range path,

@@ -3,8 +3,9 @@
 Counterpart of scan_fused and drain mode's scan_stacked in
 go_mp3_tpu/parallel/corpus.py (:566-603, :672-675), over
 decode_chunk_fused_batch_impl and its mono twin (go_mp3_tpu/ops/granule.py:
-726-741): for each of k chunks and each lane group, K4 -> K1 -> K2 -> K3,
-the per-group state carried from chunk to chunk.
+726-741): for each of k chunks and each lane group, K1 on the wire rows
+(requant_stereo_fused) -> K2 -> K3, the per-group state carried from chunk
+to chunk.
 
 Two forms of the same launch sequence:
  - run_segment_eager: a Python loop over chunks and lane groups. It is the
@@ -12,9 +13,9 @@ Two forms of the same launch sequence:
    and the non-drain corpus path on the card.
  - SegmentGraph: the sequence captured once into a torch.cuda.CUDAGraph
    over static buffers and replayed once per segment, the counterpart of
-   JAX's one compiled k-chunk scan. The compute stays in K1-K4; the graph
-   removes the per-launch host dispatch (4 kernel calls per chunk and
-   group, 6 launches).
+   JAX's one compiled k-chunk scan. The compute stays in K1-K3; the graph
+   removes the per-launch host dispatch (3 kernel launches per chunk and
+   group).
 
 A lane group is a (lanes, mono) pair: mono groups ship the half-width wire
 (ops/wire.py). Padding chunks carry valid = 0, which leaves the state as it
@@ -67,7 +68,8 @@ class SegmentGraph:
     into `states`, so the carry never leaves the card.
 
     Capture records the kernel wrappers' launches without running them;
-    each replay adds them to the wrappers' counts, and to `replays`."""
+    each replay adds them to the wrappers' counts (kernels.all_counts()),
+    and to `replays`."""
 
     replays = 0  # replays of every SegmentGraph, a plain count like .launches
 
@@ -97,7 +99,7 @@ class SegmentGraph:
                 run_segment_eager(self.bufs, valids, states, t, self.widths, self.monos)
             torch.cuda.current_stream(dev).wait_stream(side)
 
-            before = K.launch_counts()
+            before = K.all_counts()
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 _, new = run_segment_eager(self.bufs, valids, states, t,
@@ -105,10 +107,9 @@ class SegmentGraph:
                 for st, nw in zip(states, new):
                     st.store.copy_(nw.store)
                     st.v_fifo.copy_(nw.v_fifo)
-            self.launches = {}
-            for kern in K.KERNELS:
-                self.launches[kern.__name__] = kern.launches - before[kern.__name__]
-                kern.launches = before[kern.__name__]
+            # what one replay launches, in all_counts()'s keys
+            self.launches = {k: n - before[k] for k, n in K.all_counts().items()}
+            K.add_counts({k: -n for k, n in self.launches.items()})
         # host clock; capture begins with a device synchronisation, so this
         # includes the warm-up's card time
         self.capture_seconds = time.perf_counter() - t0
@@ -117,8 +118,7 @@ class SegmentGraph:
         with torch.cuda.device(self.device):
             self.graph.replay()
         SegmentGraph.replays += 1
-        for kern in K.KERNELS:
-            kern.launches += self.launches[kern.__name__]
+        K.add_counts(self.launches)
 
 
 def static_slots(k: int, t: int, sizes, device):

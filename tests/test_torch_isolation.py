@@ -195,7 +195,8 @@ def test_kernels_import_without_nvcc_or_triton(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "name", ["requant_stereo", "requant_stereo_batch", "hybrid", "synth", "unpack_fused"])
+    "name", ["requant_stereo", "requant_stereo_batch", "requant_stereo_fused", "hybrid",
+             "synth", "unpack_fused"])
 def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     """A wrapper given CPU tensors returns the plain version's result and
     counts no launch; the kernel library is never loaded."""
@@ -212,19 +213,22 @@ def test_cpu_tensors_route_to_plain_version(name, monkeypatch):
     x18, _ = P.hybrid_ref(x, ginfo, state.store, v)
     buf = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (2, wire.fused_stream_nbytes(20, 301)), dtype=np.uint8))
+    rows = torch.from_numpy(wire.build_fused_chunk(  # granules K1 can read
+        *syn.to_packed8(*(a.numpy() for a in packed)), 301))
     args = {
         "requant_stereo": ((packed,), (x, ginfo)),
         "requant_stereo_batch": ((batch,), (x, ginfo)),
         "hybrid": ((x, ginfo, state.store, v), P.hybrid_ref(x, ginfo, state.store, v)),
         "synth": ((x18, ginfo, state.v_fifo, v), P.synth_ref(x18, ginfo, state.v_fifo, v)),
         "unpack_fused": ((buf, 20, 301), P.unpack_fused_ref(buf, 20, 301)),
+        "requant_stereo_fused": ((rows, 20, 301), P.requant_stereo_fused_ref(rows, 20, 301)),
     }[name]
     kernels.reset_launch_counts()
     wrapper = name.removesuffix("_batch")
     got = getattr(kernels, wrapper)(*args[0])
     for a, b in zip(got, args[1]):
         assert torch.equal(a, b)
-    assert kernels.launch_counts()[wrapper] == 0
+    assert not any(kernels.all_counts().values())
     assert kernels.requant_stereo.batch_launches == 0
 
 

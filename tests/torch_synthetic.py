@@ -144,6 +144,22 @@ def to_packed8(
     return tail8, head16, side8
 
 
+def from_packed8(
+    tail8: np.ndarray, head16: np.ndarray, side8: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """The int8 interface -> the int16 interface holding the same granules
+    (to_packed8's inverse where no tail line was clipped)."""
+    lead = tail8.shape[:-1]
+    spectra = np.concatenate(
+        [head16.reshape(*lead, 2, HEAD_LINES),
+         tail8.reshape(*lead, 2, SAMPLES_PER_GR - HEAD_LINES).astype(np.int16)],
+        axis=-1,
+    ).reshape(*lead, 2 * SAMPLES_PER_GR)
+    meta = side8[..., 0:44:2].astype(np.uint16) | side8[..., 1:44:2].astype(np.uint16) << 8
+    side = np.concatenate([meta.view(np.int16), side8[..., 44:166].astype(np.int16)], axis=-1)
+    return spectra, side
+
+
 def random_chunk(
     seed: int, n_streams: int, t: int, valid: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray]:
