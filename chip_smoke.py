@@ -29,13 +29,21 @@ first that fails:
     counts of 0, T, and 13-15, at the start of and inside a run), each
     within the same bounds and bit-identical over every run length
     (granules a warp or block) the kernels take, and each run length timed
-    at S=64, T=240; a chunk of T=0 through K1 (every input and tile), K2,
-    K3 (every run length), K4, decode_chunk and decode_chunk_fused: empty
-    outputs, and the state returned equal to the state given;
+    at S=64, T=240; the chain kernel (K5: K1 -> K2 -> K3 in one launch,
+    which decode_chunk and decode_chunk_fused launch) on each of K1's four
+    inputs, bit-identical to K1 -> K2 -> K3 at every run length it takes
+    (S=64 at T=240 and 37, S=1 at T=128 and 1, a mono wire at S=5 T=37;
+    valid 0, T, 13-15), within bounds of its plain version, and timed
+    beside K1 + K2 + K3 at S=64 T=240 and S=1 T=128; a chunk of T=0
+    through K1 (every input and tile), K2, K3 (every run length), the
+    chain (every input and run length), K4, decode_chunk and
+    decode_chunk_fused: empty outputs, and the state returned equal to the
+    state given;
  3. chunk invariance: the same granules decoded as one chunk and split at
     other boundaries, state carried: bit-identical PCM and state; and a
     k = 4 segment of both lane groups replayed twice through the captured
-    SegmentGraph against run_segment_eager: bit-identical PCM and state;
+    SegmentGraph against run_segment_eager: bit-identical PCM and state,
+    one chain launch captured per chunk and group;
  4. Decoder: a 94 s stream (conformance/synthetic_escape.mp3 x300) read
     whole and after a seek, against the exact C++ backend, ISO full
     compliance (RMS < 0.289 LSB, max diff <= 2), and a checkpoint/resume;
@@ -80,9 +88,11 @@ first that fails:
  8. the last line: {"ok": true, "device": {...}}.
 
 Each phase of the main path (4 to 7) starts each run with the launch
-counts at 0 and checks that K1-K3 (and, in 4b and 5b, K1's GranuleBatch
-route; on the fused corpus path K1's wire route and, with drain, the
-graph; in 5c K4) ran; the JSON line sums the launches over them.
+counts at 0 and checks that the chain kernel ran with K1 on the expected
+route (int16 for the Decoder, the GranuleBatch in 4b's Python parse and
+5b, the int8 interface for fused=False, the wire on the fused corpus
+path; with drain, the graph), and that K1-K4 did not (in 5c K4, the
+public unpack_fused, alone); the JSON line sums the launches over them.
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main path, its error against the plain version, its card
 time and the plain version's (phase 2's shapes), and its bound: the larger
@@ -120,6 +130,8 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
               "go_mp3_tpu/ops/granule.py:423"),
     "unpack_fused": ("go_mp3_tpu_torch/csrc/unpack_fused.cu",
                      "go_mp3_tpu/ops/granule.py:661"),
+    "chain": ("go_mp3_tpu_torch/csrc/chain.cu",
+              "go_mp3_tpu/ops/granule.py:493"),
 }
 GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
              "go_mp3_tpu/ops/granule.py:726")
@@ -533,6 +545,140 @@ def phase_k1_routes(dev) -> dict:
     return times
 
 
+CHAIN_CASES = (  # (S, T, wire tail lines, mono, valid vectors as in TILE_CASES)
+    (64, 240, 512, False, None),
+    (64, 37, 464, False, None),
+    (1, 128, 512, False, ([0], [128], *([v] for v in MID_RUN_VALID))),
+    (1, 1, 512, False, ([0], [1])),
+    (5, 37, 301, True, None),
+)
+# the chain against its plain version: PCM as K3 on the chain's own x18
+# (test_synth_parity's white-noise bounds), the state within the
+# requantize bound (2e-5) of its scale
+CHAIN_PCM_RMS, CHAIN_PCM_MAX, CHAIN_STATE_REL = 0.289, 72, 2e-5
+
+
+def k123(packed, t_dim: int, state, valid, lines: int = WIRE_LINES, mono: bool = False):
+    """K1 -> K2 -> K3 through their own wrappers: what decode_chunk
+    launched before the chain kernel. -> (pcm, store, v_fifo)."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    x, ginfo = k1(packed, t_dim, tail_lines=lines, mono=mono)
+    x18, store = K.hybrid(x, ginfo, state.store, valid)
+    pcm, fifo = K.synth(x18, ginfo, state.v_fifo, valid)
+    return pcm, store, fifo
+
+
+def _chain_launch(label: str, packed, s_dim, t_dim, state, valid, g, lines, mono):
+    """The chain kernel through its private launcher, `g` granules a block."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    if label == "fused":
+        layout, tensors = K._FUSED, (packed,)
+    else:
+        layout, tensors, _, _ = K._k1_inputs(packed)
+    pcm, st = K._chain_launch(layout, tensors, s_dim, t_dim, state, valid, None, g,
+                              lines, mono)
+    return pcm, st.store, st.v_fifo
+
+
+def phase_chain(dev) -> dict:
+    """The chain kernel (K5) on each of K1's four inputs (CHAIN_CASES:
+    [64, 240], [64, 37], the Decoder's [1, 128], [1, 1] and a mono wire [5,
+    37]; valid 0, T, 13-15 and ragged): bit for bit against K1 -> K2 -> K3
+    at every run length the kernel takes, the wrapper's included, and
+    within bounds of its plain version (decode_chunk_ref). Timed at [64,
+    240] and [1, 128] on each input, at every run length on the int8
+    input, beside K1 + K2 + K3 (and K2 and K3 alone at [1, 128]). -> its
+    row of the kernels line."""
+    import torch
+
+    from go_mp3_tpu_torch.ops import granule as G
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.ops.granule import state_from_numpy
+
+    row, worst = {}, [0.0, 0, 0.0]
+    for i, (s_dim, t_dim, lines, mono, valids) in enumerate(CHAIN_CASES):
+        seed = SEED + 60 + i
+        rng = np.random.default_rng(seed)
+        inputs = k1_inputs(seed, s_dim, t_dim, lines, mono, dev)
+        state = state_from_numpy(
+            (rng.standard_normal((s_dim, 2, 32, 18)) * 0.05).astype(np.float32),
+            (rng.standard_normal((s_dim, 2, 16, 64)) * 0.3).astype(np.float32), dev)
+        if valids is None:
+            v = rng.integers(1, t_dim + 1, s_dim).astype(np.int32)
+            v[0], v[1] = 0, t_dim
+            v[2:2 + len(MID_RUN_VALID)] = np.minimum(MID_RUN_VALID, t_dim)
+            valids = (v,)
+        plain_batch = k1_batch(inputs["fused"], t_dim, lines, mono)
+        for v in valids:
+            valid = torch.tensor(v, dtype=torch.int32, device=dev)
+            what = f"phase 2 chain S={s_dim} T={t_dim} mono={mono} valid={list(v)[:5]}"
+            for label, packed in inputs.items():
+                want = k123(packed, t_dim, state, valid, lines, mono)
+                pcm, st = K.chain(packed, state, valid, **(
+                    {"t": t_dim, "tail_lines": lines, "mono": mono} if label == "fused" else {}))
+                got = [(pcm, st.store, st.v_fifo)] + [
+                    _chain_launch(label, packed, s_dim, t_dim, state, valid, g, lines, mono)
+                    for g in K.CHAIN_RUNS]
+                for g, out in zip(("wrapper",) + K.CHAIN_RUNS, got):
+                    check(all(torch.equal(a, b) for a, b in zip(out, want)),
+                          f"{what} [{label}]: the chain with G={g} differs from "
+                          f"K1 -> K2 -> K3")
+            ref_pcm, ref_st = G.decode_chunk_ref(plain_batch, state, valid)
+            d = (pcm.int() - ref_pcm.int()).double()
+            rms, mx = float(d.pow(2).mean().sqrt()), int(d.abs().max())
+            e_st = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in ((st.store, ref_st.store), (st.v_fifo, ref_st.v_fifo)))
+            check(rms < CHAIN_PCM_RMS and mx <= CHAIN_PCM_MAX and e_st <= CHAIN_STATE_REL,
+                  f"{what}: chain against plain: PCM RMS {rms:.4f} max {mx}, state "
+                  f"{e_st:.3e}")
+            worst = [max(worst[0], rms), max(worst[1], mx), max(worst[2], e_st)]
+        say(f"phase 2 chain S={s_dim} T={t_dim} L={lines} mono={mono}, valid "
+            f"{'0, T, 13-15 and ragged' if len(valids) == 1 else [int(v[0]) for v in valids]}: "
+            f"{', '.join(inputs)} bit-identical to K1 -> K2 -> K3 at the wrapper's G="
+            f"{K.chain_run(dev, s_dim, t_dim)} and every G of {K.CHAIN_RUNS}")
+        if (s_dim, t_dim) not in ((64, 240), (1, 128)):
+            continue
+        shape = f"S={s_dim} T={t_dim}"
+        # ragged counts at [64, 240]; every granule at the Decoder's [1, 128]
+        valid = torch.tensor(valids[0] if len(valids) == 1 else [t_dim],
+                             dtype=torch.int32, device=dev)
+        pick = K.chain_run(dev, s_dim, t_dim)
+        out = nbytes(pcm, valid) + 2 * nbytes(state.store, state.v_fifo)
+        flops = k1_flops(s_dim, t_dim) + k2_flops(s_dim, t_dim) + k3_flops(s_dim, t_dim)
+        for label, packed in inputs.items():
+            ins = packed if isinstance(packed, tuple) else (packed,)
+            runs = {g: time_ms(lambda packed=packed, g=g: _chain_launch(
+                label, packed, s_dim, t_dim, state, valid, g, lines, mono))
+                for g in (K.CHAIN_RUNS if label == "int8" else (pick,))}
+            k3_ms = time_ms(lambda packed=packed: k123(packed, t_dim, state, valid, lines, mono))
+            row.setdefault("routes", {}).setdefault(label, {})[shape] = {
+                "ms": runs[pick], "run": pick, "runs_ms": runs, "k1_k2_k3_ms": k3_ms,
+                **bound(nbytes(*ins) + out, flops)}
+            say(f"phase 2 time chain [{label}] ({shape}; card time, ms; the wrapper's "
+                f"G={pick}): " + ", ".join(f"G={g} {t:.4f}" for g, t in runs.items())
+                + f"; K1 -> K2 -> K3 {k3_ms:.4f}")
+        if s_dim == 1:
+            x, ginfo = K.requant_stereo(inputs["int16"])
+            x18, _ = K.hybrid(x, ginfo, state.store, valid)
+            row["k2_k3_ms"] = {shape: {
+                "hybrid": time_ms(lambda: K.hybrid(x, ginfo, state.store, valid)),
+                "synth": time_ms(lambda: K.synth(x18, ginfo, state.v_fifo, valid))}}
+            say(f"phase 2 time K2, K3 alone ({shape}; card time, ms): "
+                f"{row['k2_k3_ms'][shape]}")
+        if s_dim == 64:
+            row["plain_ms"] = time_ms(lambda: G.decode_chunk_ref(plain_batch, state, valid))
+    say(f"phase 2 chain against plain (decode_chunk_ref): worst PCM RMS {worst[0]:.4f} "
+        f"(< {CHAIN_PCM_RMS}), max {worst[1]} (<= {CHAIN_PCM_MAX}), state "
+        f"{worst[2]:.3e} (<= {CHAIN_STATE_REL})")
+    routes = row.pop("routes")
+    int8 = routes.pop("int8")
+    row.update(max_abs_err=float(worst[1]), **int8["S=64 T=240"],
+               shapes={"S=1 T=128": int8["S=1 T=128"]}, routes=routes)
+    return row
+
+
 def phase_empty_chunk(dev) -> None:
     """A chunk of T = 0 granules: K1 on each input at every tile, K2 and K3
     at every run length, K4, decode_chunk on each input and
@@ -593,12 +739,20 @@ def phase_empty_chunk(dev) -> None:
         pcm, fifo = K._synth_launch(x18, ginfo, state.v_fifo, valid, None, g)
         check(pcm.shape == (s_dim, 0, 2) and torch.equal(fifo, state.v_fifo),
               f"T=0 K3 with {g} granules a block")
+    for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch),
+                          ("fused", wire)):
+        for g in K.CHAIN_RUNS:
+            pcm, store, fifo = _chain_launch(label, packed, s_dim, 0, state, valid, g,
+                                             lines, False)
+            check(pcm.shape == (s_dim, 0, 2) and torch.equal(store, state.store)
+                  and torch.equal(fifo, state.v_fifo), f"T=0 chain [{label}] G={g}")
     counts = K.all_counts()
     check(not any(counts.values()), f"T=0: a kernel was launched ({counts})")
     say(f"phase 2 tiles S={s_dim} T=0: K1 (4 inputs x tiles {K.K1_TILES}), K2 (runs "
-        f"{K2_RUNS}), K3 (runs {K3_RUNS}), K4 (stereo and mono), "
-        f"decode_chunk (3 inputs) and decode_chunk_fused (stereo and mono): empty "
-        f"outputs, no launch, the state returned equal to the state given")
+        f"{K2_RUNS}), K3 (runs {K3_RUNS}), K4 (stereo and mono), the chain (4 inputs "
+        f"x runs {K.CHAIN_RUNS}), decode_chunk (3 inputs) and decode_chunk_fused "
+        f"(stereo and mono): empty outputs, no launch, the state returned equal to "
+        f"the state given")
 
 
 def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
@@ -654,7 +808,8 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
         say(f"phase 2 K1 requant_stereo [{label}] per call, host included: "
             f"{time_ms(lambda: k1(packed, t_dim), queued=False):.4f} ms "
             f"(card time {time_ms(lambda: k1(packed, t_dim)):.4f} ms)")
-    # K5' (the fused=False path's chunk, chunk_t = 256): K1 -> K2 -> K3 eager
+    # K5' (the fused=False path's chunk, chunk_t = 256): one eager launch of
+    # the chain kernel
     p16e, p8e, valid_e, state_e, _ = smoke_batch(s_dim, 256, dev)
     eager = time_ms(lambda: K.decode_chunk(p8e, state_e, valid_e))
     pcm_e, _ = K.decode_chunk(p8e, state_e, valid_e)
@@ -886,6 +1041,9 @@ def phase_graph(dev, t_dim: int, k: int = 4) -> dict:
         dst.store.copy_(src.store)
         dst.v_fifo.copy_(src.v_fifo)
     graph = SegmentGraph(t_dim, widths, monos, *slots)
+    captured = {n: c for n, c in graph.launches.items() if c}
+    check(captured == {"chain": k * len(groups), "chain_fused": k * len(groups)},
+          f"SegmentGraph: captured {captured}, not one chain launch per chunk and group")
     worst = 0
     for i, ((bufs, valids), (pcm_e, st_e)) in enumerate(zip(segs, eager)):
         for dst, src in zip(graph.bufs, bufs):
@@ -909,7 +1067,7 @@ def phase_graph(dev, t_dim: int, k: int = 4) -> dict:
     bufs, valids = segs[0]
     st_copy = [DecodeState(s.store.clone(), s.v_fifo.clone()) for s in slots[1]]
     # the segment's bytes: the wire and valid counts in, the PCM out, the
-    # state in and out; its operations: K1-K3 on every chunk of each group
+    # state in and out; its operations: the chain on every chunk of each group
     seg_bytes = nbytes(*bufs, *valids, *slots[2]) + 2 * sum(
         nbytes(st.store, st.v_fifo) for st in slots[1])
     seg_flops = sum(k * (k1_flops(s, t_dim) + k2_flops(s, t_dim) + k3_flops(s, t_dim))
@@ -993,16 +1151,19 @@ class _NonSeekable:
 K1_ROUTES = ("int16", "granule_batch", "fused")  # K1's counted routes
 
 
+STAGE_KERNELS = ("requant_stereo", "hybrid", "synth", "unpack_fused")  # K1-K4
+
+
 def _check_chain(counts: dict, what: str, route: str | None) -> None:
-    """K1-K3 ran, every K1 launch on `route` (one of K1_ROUTES, or None:
-    the int8 interface), and K4 never."""
-    check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth")),
-          f"{what}: a kernel of K1-K3 never ran ({counts})")
+    """The chain kernel ran, every launch with K1 on `route` (one of
+    K1_ROUTES, or None: the int8 interface), and K1-K4 never."""
+    check(counts["chain"] > 0, f"{what}: the chain kernel never ran ({counts})")
     for r in K1_ROUTES:
-        check((counts[r] == counts["requant_stereo"]) == (r == route),
-              f"{what}: K1's {r} route ran {counts[r]} of "
-              f"{counts['requant_stereo']} times")
-    check(counts["unpack_fused"] == 0, f"{what}: K4 ran {counts['unpack_fused']} times")
+        check((counts["chain_" + r] == counts["chain"]) == (r == route),
+              f"{what}: the chain's {r} route ran {counts['chain_' + r]} of "
+              f"{counts['chain']} times")
+    for n in STAGE_KERNELS:
+        check(counts[n] == 0, f"{what}: {n} ran {counts[n]} times on the main path")
 
 
 def _sync_all() -> None:
@@ -1336,7 +1497,6 @@ def phase_mesh(dev, lanes: list[bytes], corpus_pcm: list[bytes],
     meshes = (("make_mesh()", make_mesh()),
               (f"[{', '.join(map(str, pair.devices))}]", pair))
     audio = sum(len(p) / 4 / index_stream(d)[2] for p, d in zip(corpus_pcm, lanes))
-    kernel_chain = ("requant_stereo", "hybrid", "synth")
 
     # the sharded decoders on the phase-2 batch, inputs from the host
     p16, _, valid, state, _ = smoke_batch(S_SMOKE, T_SMOKE, dev)
@@ -1369,7 +1529,8 @@ def phase_mesh(dev, lanes: list[bytes], corpus_pcm: list[bytes],
             check(torch.equal(st.store, ref_state.store.cpu())
                   and torch.equal(st.v_fifo, ref_state.v_fifo.cpu()),
                   f"phase 6 {name} on {label}: state differs from decode_chunk")
-            check(all(counts[n] > 0 for n in kernel_chain), f"phase 6 {name}: {counts}")
+            _check_chain(counts, f"phase 6 {name} on {label}",
+                         "granule_batch" if name == "make_sharded_decoder" else "int16")
             say(f"phase 6 {name} on {label}: 2 chunks of [{S_SMOKE}, {T_SMOKE}] "
                 f"with the state carried in {wall:.4f} s (host inputs, PCM "
                 f"gathered on the host); PCM and state bit-identical to "
@@ -1431,10 +1592,10 @@ def phase_conformance() -> dict:
     rc, wall, counts = runs.run("phase 7 conformance",
                                 lambda: conformance.main(["--device", "cuda"]))
     check(rc == 0, f"phase 7: the conformance bundle failed (exit {rc})")
-    check(all(counts[n] > 0 for n in ("requant_stereo", "hybrid", "synth",
-                                       "fused", "segment_graph")),
+    check(all(counts[n] > 0 for n in ("chain", "chain_fused", "segment_graph")),
           f"phase 7: a kernel never ran ({counts})")
-    check(counts["unpack_fused"] == 0, f"phase 7: K4 ran {counts['unpack_fused']} times")
+    check(not any(counts[n] for n in STAGE_KERNELS),
+          f"phase 7: a kernel of K1-K4 ran on the main path ({counts})")
     say(f"phase 7 conformance on cuda: passed in {wall:.3f} s; launches {counts}")
     return runs.totals
 
@@ -1474,6 +1635,7 @@ def main(argv=None) -> int:
     phase_device()
     rows = phase_kernels(dev, S_SMOKE, T_SMOKE)
     k1_shapes = phase_k1_routes(dev)
+    rows["chain"] = phase_chain(dev)
     phase_tiles(dev)
     phase_empty_chunk(dev)
     rows["unpack_fused"] = phase_unpack(dev, S_SMOKE, T_SMOKE)
@@ -1503,6 +1665,8 @@ def main(argv=None) -> int:
     for label, route in k1_row["routes"].items():
         route["launches"] = counts[label]
         route["shapes"] = k1_shapes[label]
+    for label, route in rows["chain"]["routes"].items():
+        route["launches"] = counts["chain_" + label]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **rows[name]}

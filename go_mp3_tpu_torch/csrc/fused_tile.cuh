@@ -62,10 +62,12 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* p, int n) {
 // granules), transposed in registers with __byte_perm into one word per
 // granule. Lines >= L, channel 1 of a mono row and granules >= T are zero,
 // and are never read. kThreads threads, each with a fixed unit count, so
-// that every load of the thread is in flight before the first store.
+// that every load of the thread is in flight before the first store. Only
+// the quads that hold one of the first n granules (n <= G) are loaded.
 template <int G, int kThreads>
 __device__ __forceinline__ void stage_tail(const Wire& w, int s, int t0,
-                                           uint32_t* __restrict__ stail, int tid) {
+                                           uint32_t* __restrict__ stail, int tid,
+                                           int n = G) {
   constexpr int kQuads = (G + 3) / 4;               // granule quads of the tile
   constexpr int kUnits = 2 * kTailWords * kQuads;   // (channel, word, quad)
   constexpr int kIters = (kUnits + kThreads - 1) / kThreads;
@@ -78,7 +80,7 @@ __device__ __forceinline__ void stage_tail(const Wire& w, int s, int t0,
 #pragma unroll
     for (int i = 0; i < 4; i++) {
       const int l = 4 * wd + i;
-      v[k][i] = (u < kUnits && c < w.nch && l < w.L)
+      v[k][i] = (u < kUnits && c < w.nch && l < w.L && 4 * gq < n)
                     ? load4(w.tail(s, c) + (size_t)l * w.T + t, w.T - t)
                     : 0u;
     }

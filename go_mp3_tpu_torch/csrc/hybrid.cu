@@ -34,25 +34,19 @@
 // from 0.0f, then the window, then + store, then the sign, with every
 // multiply-add written as an explicit fused or unfused operation, so the
 // predecessor's upper half is bit-identical to the one a run carries and
-// no output depends on G, on T or on where a chunk was split.
+// no output depends on G, on T or on where a chunk was split. The
+// butterflies, the dot product and the tables are hybrid_tile.cuh's, which
+// the granule chain (chain.cu) shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "hybrid_tile.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 4;  // (stream, channel, run) units per block
-constexpr int kRow = 576;     // lines of one granule and channel
-constexpr int kJ = 20;        // a coefficient row: j = 0..17, padded to 5 float4
-
-// The IMDCT matrices as rows [output p][j] (cos36 and the composed
-// short-block m3, 36 rows each), padded with zeros to kJ.
-__device__ __align__(16) float g_tab[2][36][kJ];
-__device__ float g_win[4 * 36];
-__device__ float g_cs[8];
-__device__ float g_ca[8];
 
 // One 576-float row, device memory -> shared memory, 16 bytes a lane.
 __device__ __forceinline__ void copy_row(float* __restrict__ dst,
@@ -62,56 +56,12 @@ __device__ __forceinline__ void copy_row(float* __restrict__ dst,
   for (int k = lane; k < kRow / 4; k += 32) d[k] = s[k];
 }
 
-// Subband sb's 18 lines of the staged row, with the butterflies of its
-// two boundaries where the block class has them (long: all 31, mixed:
-// boundary 0 only). The butterflies read the unmodified staged lines.
-__device__ __forceinline__ void antialias(const float* __restrict__ xs, int sb,
-                                          int cls, const float* __restrict__ cs,
-                                          const float* __restrict__ ca,
-                                          float (&y)[18]) {
-#pragma unroll
-  for (int i = 0; i < 18; i++) y[i] = xs[sb * 18 + i];
-  if (sb >= 1 && (cls == 0 || (cls == 2 && sb == 1))) {
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-      const float up = xs[sb * 18 + i], lo = xs[sb * 18 - 1 - i];
-      y[i] = __fmaf_rn(up, cs[i], __fmul_rn(lo, ca[i]));
-    }
-  }
-  if (sb <= 30 && (cls == 0 || (cls == 2 && sb == 0))) {
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-      const float lo = xs[sb * 18 + 17 - i], up = xs[(sb + 1) * 18 + i];
-      y[17 - i] = __fmaf_rn(lo, cs[i], -__fmul_rn(up, ca[i]));
-    }
-  }
-}
-
-// sum over j = 0..17 of y[j] * row[j], from 0.0f, j in order, each step an
-// explicit fused multiply-add; the row is read in 16-byte pieces, the same
-// address in every lane (a broadcast).
-__device__ __forceinline__ float dot18(const float (&y)[18], const float* __restrict__ row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-  float acc = 0.0f;
-#pragma unroll
-  for (int q = 0; q < 4; q++) {
-    const float4 c = r[q];
-    acc = __fmaf_rn(y[4 * q], c.x, acc);
-    acc = __fmaf_rn(y[4 * q + 1], c.y, acc);
-    acc = __fmaf_rn(y[4 * q + 2], c.z, acc);
-    acc = __fmaf_rn(y[4 * q + 3], c.w, acc);
-  }
-  const float4 c = r[4];
-  acc = __fmaf_rn(y[16], c.x, acc);
-  return __fmaf_rn(y[17], c.y, acc);
-}
-
 __global__ void __launch_bounds__(kMaxWarps * 32)
 hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ ginfo,
               const float* __restrict__ store_in, const int32_t* __restrict__ valid,
               float* __restrict__ x18, float* __restrict__ store_out, int S, int T,
               int G) {
-  __shared__ __align__(16) float s_tab[2 * 36 * kJ];
+  __shared__ __align__(16) float s_tab[kHybridTabFloats];
   __shared__ float s_win[4 * 36];
   __shared__ float s_cs[8], s_ca[8];
   __shared__ __align__(16) float s_in[kMaxWarps][kRow];
@@ -119,7 +69,7 @@ hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ ginfo,
   {
     const float4* src = reinterpret_cast<const float4*>(&g_tab[0][0][0]);
     float4* dst = reinterpret_cast<float4*>(s_tab);
-    for (int k = threadIdx.x; k < 2 * 36 * kJ / 4; k += blockDim.x) dst[k] = src[k];
+    for (int k = threadIdx.x; k < kHybridTabFloats / 4; k += blockDim.x) dst[k] = src[k];
   }
   for (int k = threadIdx.x; k < 4 * 36; k += blockDim.x) s_win[k] = g_win[k];
   if (threadIdx.x < 8) {
@@ -221,18 +171,7 @@ int gomp3_hybrid_init(int device, const float* cs, const float* ca,
                       const float* cos36, const float* m3, const float* win) {
   gomp3::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  cudaMemcpyToSymbol(g_cs, cs, sizeof(float) * 8);
-  cudaMemcpyToSymbol(g_ca, ca, sizeof(float) * 8);
-  float tab[2][36][kJ];  // [matrix][p][j], zero past j = 17
-  for (int p = 0; p < 36; p++) {
-    for (int j = 0; j < kJ; j++) {
-      tab[0][p][j] = j < 18 ? cos36[j * 36 + p] : 0.0f;
-      tab[1][p][j] = j < 18 ? m3[j * 36 + p] : 0.0f;
-    }
-  }
-  cudaMemcpyToSymbol(g_tab, tab, sizeof(tab));
-  cudaMemcpyToSymbol(g_win, win, sizeof(float) * 4 * 36);
-  return (int)cudaGetLastError();
+  return (int)hybrid_upload_tables(cs, ca, cos36, m3, win);
 }
 
 // x f32 [S][T][2][576], ginfo i32 [S][T], store_in f32 [S][2][32][18],

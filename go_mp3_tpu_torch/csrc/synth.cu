@@ -39,103 +39,23 @@
 //
 // Arithmetic: v sums sb = 0..31 in order, the FIR sums taps k = 0..15 in
 // order, each as an explicit fused multiply-add from 0.0f, so no output
-// depends on G, on T or on where a chunk was split.
+// depends on G, on T or on where a chunk was split. The staging, the
+// matrixing tile, the FIR and the FIFO's way in and out are
+// synth_tile.cuh's, which the granule chain (chain.cu) shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "synth_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 384;  // matrixing: 4 granules x 96; FIR: 12 warps of 32 columns
 constexpr int kMaxG = 4;       // granules per block at most
-constexpr int kXsStride = 36;  // staged x18: [2][18][36] (subbands padded)
-constexpr int kXsFloats = 2 * 18 * kXsStride;
-constexpr int kTile = 96;      // threads a granule's matrixing: 6 slot groups x 16 column groups
 
-__device__ __align__(16) float g_nt[32 * 64];  // SYNTH_N_WIN transposed: [sb][i]
-__device__ float g_dtbl[512];    // SYNTH_DTBL
-
-__host__ __device__ constexpr int v_rows(int G) { return G * 18 + 15; }
 __host__ __device__ constexpr size_t smem_bytes(int G) {  // N, G + 1 staged granules, v
   return sizeof(float) * (32 * 64 + (G + 1) * kXsFloats + 2 * v_rows(G) * 64);
-}
-
-__device__ __forceinline__ int16_t to_pcm(float acc) {
-  const float samp = fminf(fmaxf(__fmul_rn(acc, 32767.0f), -32767.0f), 32767.0f);
-  return (int16_t)(int)samp;  // truncation toward zero
-}
-
-// x18 of granules (s, t .. t + count - 1) -> xs[g][c][slot][sb]. Thread
-// (g, c, sb) moves one subband's 18 slots, 8 bytes a load, every load
-// issued before its first store, so the loads of the pass overlap.
-__device__ __forceinline__ void stage_granules(float* __restrict__ xs,
-                                               const float* __restrict__ x18, int s,
-                                               int T, int t, int count) {
-  for (int u = threadIdx.x; u < count * 64; u += kThreads) {
-    const int g = u >> 6, c = (u >> 5) & 1, sb = u & 31;
-    const float2* src = reinterpret_cast<const float2*>(
-        x18 + (((size_t)s * T + t + g) * 2 + c) * 576 + sb * 18);
-    float2 e[9];
-#pragma unroll
-    for (int k = 0; k < 9; k++) e[k] = src[k];
-    float* dst = xs + g * kXsFloats + c * 18 * kXsStride + sb;
-#pragma unroll
-    for (int k = 0; k < 9; k++) {
-      dst[(2 * k) * kXsStride] = e[k].x;
-      dst[(2 * k + 1) * kXsStride] = e[k].y;
-    }
-  }
-}
-
-// v rows of the staged granule's slots slot_lo..17, both channels, into
-// v[c][l0 + slot][i]. Thread `unit` of the granule's kTile, (slot group pg,
-// column group cg), forms slots pg, pg + 6 and pg + 12 of both channels for
-// columns 4cg .. 4cg + 3: 24 sums in registers, each over sb = 0..31 in
-// order. A step of 4 subbands loads 4 rows of N (its 4 columns) and 6 rows
-// of x (broadcast to the 16 threads of a slot group), 16 bytes each, for 96
-// multiply-adds.
-__device__ __forceinline__ void matrix_tile(const float* __restrict__ xs,
-                                            const float* __restrict__ nt,
-                                            float* __restrict__ v, int vrows, int l0,
-                                            int slot_lo, int unit) {
-  const int pg = unit >> 4, cg = unit & 15;
-  float acc[3][2][4] = {};
-#pragma unroll
-  for (int sb = 0; sb < 32; sb += 4) {
-    float nn[4][4];  // N[sb + u][4cg + k]
-#pragma unroll
-    for (int u = 0; u < 4; u++) {
-      const float4 r = *reinterpret_cast<const float4*>(nt + (sb + u) * 64 + 4 * cg);
-      nn[u][0] = r.x, nn[u][1] = r.y, nn[u][2] = r.z, nn[u][3] = r.w;
-    }
-#pragma unroll
-    for (int q = 0; q < 3; q++) {
-#pragma unroll
-      for (int c = 0; c < 2; c++) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            xs + (c * 18 + pg + 6 * q) * kXsStride + sb);
-#pragma unroll
-        for (int k = 0; k < 4; k++) {
-          float t = acc[q][c][k];
-          t = __fmaf_rn(a.x, nn[0][k], t);
-          t = __fmaf_rn(a.y, nn[1][k], t);
-          t = __fmaf_rn(a.z, nn[2][k], t);
-          acc[q][c][k] = __fmaf_rn(a.w, nn[3][k], t);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 3; q++) {
-    const int slot = pg + 6 * q;
-    if (slot < slot_lo) continue;
-#pragma unroll
-    for (int c = 0; c < 2; c++)
-      *reinterpret_cast<float4*>(v + ((size_t)c * vrows + l0 + slot) * 64 + 4 * cg) =
-          make_float4(acc[q][c][0], acc[q][c][1], acc[q][c][2], acc[q][c][3]);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -156,14 +76,8 @@ synth_kernel(const float* __restrict__ x18, const int32_t* __restrict__ ginfo,
   for (int k = tid; k < 32 * 64 / 4; k += kThreads)
     reinterpret_cast<float4*>(nt)[k] = reinterpret_cast<const float4*>(g_nt)[k];
   // stage granules t0-1 (the halo's, where t0 > 0) .. t1-1 in one pass
-  stage_granules(xs + (1 - halo) * kXsFloats, x18, s, T, t0 - halo, ng + halo);
-  if (!halo) {  // the 15 halo rows: v row m < 0 is FIFO slot -1 - m (slot 0 newest)
-    for (int k = tid; k < 2 * 15 * 64; k += kThreads) {
-      const int c = k / (15 * 64), l = (k / 64) % 15, i = k % 64;
-      v[((size_t)c * vrows + l) * 64 + i] =
-          fifo_in[(((size_t)s * 2 + c) * 16 + (14 - l)) * 64 + i];
-    }
-  }
+  stage_granules<kThreads>(xs + (1 - halo) * kXsFloats, x18, s, T, t0 - halo, ng + halo);
+  if (!halo) fifo_to_halo<kThreads>(v, vrows, fifo_in, s, tid);
   __syncthreads();
   // matrixing, four granules at a time: item w < halo is granule t0-1,
   // item w >= halo granule t0 + w - halo
@@ -175,55 +89,8 @@ synth_kernel(const float* __restrict__ x18, const int32_t* __restrict__ ginfo,
                   tid % kTile);
   }
   __syncthreads();
-
-  // FIR: warp c forms chain c, rows r0, r0 + 2, r0 + 4 of one parity, lane
-  // j column j. Row r0 + 2i takes v row m as its tap q - 4 + 2i (q = r0 +
-  // 19 - m), so the three rows share 12 of their 16 v values: 20 loads a
-  // channel for 48 multiply-adds, each row still summed over taps k =
-  // 0..15 in order from 0.0f.
-  const int j = tid & 31;
-  float d[16];
-#pragma unroll
-  for (int k = 0; k < 16; k++) d[k] = g_dtbl[32 * k + j];
-  const int rows = T * 18;
-  for (int c = tid >> 5; c < 6 * ng; c += kThreads / 32) {
-    const int r0 = (c & 1) + 6 * (c >> 1);
-    float acc[2][3] = {};
-#pragma unroll
-    for (int q = 0; q < 20; q++) {
-      const int m = r0 + 19 - q, col = (q & 1) * 32 + j;
-      const float a0 = v[(size_t)m * 64 + col], a1 = v[((size_t)vrows + m) * 64 + col];
-#pragma unroll
-      for (int i = 0; i < 3; i++) {
-        const int k = q - 4 + 2 * i;
-        if (k >= 0 && k < 16) {
-          acc[0][i] = __fmaf_rn(a0, d[k], acc[0][i]);
-          acc[1][i] = __fmaf_rn(a1, d[k], acc[1][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; i++) {
-      const int row = t0 * 18 + r0 + 2 * i;
-      const int16_t o0 = to_pcm(acc[0][i]);
-      const int16_t o1 = ((ginfo[(size_t)s * T + row / 18] >> 8) & 1) ? o0 : to_pcm(acc[1][i]);
-      const uint32_t word = (uint16_t)o0 | ((uint32_t)(uint16_t)o1 << 16);
-      reinterpret_cast<uint32_t*>(pcm)[((size_t)s * rows + row) * 32 + j] = word;
-    }
-  }
-
-  // the FIFO: slot q (0 newest) is v row nv*18 - 1 - q
-  if (nv > 0 && t0 <= nv - 1 && nv - 1 < t1) {
-    for (int k = tid; k < 2 * 16 * 64; k += kThreads) {
-      const int c = k / (16 * 64), q = (k / 64) % 16, i = k % 64;
-      const int l = nv * 18 - 1 - q - (t0 * 18 - 15);
-      fifo_out[(((size_t)s * 2 + c) * 16 + q) * 64 + i] =
-          v[((size_t)c * vrows + l) * 64 + i];
-    }
-  } else if (nv == 0 && t0 == 0) {
-    for (int k = tid; k < 2 * 16 * 64; k += kThreads)
-      fifo_out[(size_t)s * 2 * 16 * 64 + k] = fifo_in[(size_t)s * 2 * 16 * 64 + k];
-  }
+  fir_to_pcm<kThreads>(v, vrows, ginfo + (size_t)s * T + t0, pcm, s, T, t0, ng, tid);
+  write_fifo<kThreads>(v, vrows, fifo_in, fifo_out, s, t0, t1, nv, tid);
 }
 
 }  // namespace
@@ -234,8 +101,7 @@ extern "C" {
 int gomp3_synth_init(int device, const float* nt, const float* dtbl) {
   gomp3::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  cudaMemcpyToSymbol(g_nt, nt, sizeof(float) * 32 * 64);
-  cudaMemcpyToSymbol(g_dtbl, dtbl, sizeof(float) * 512);
+  synth_upload_tables(nt, dtbl);
   cudaFuncSetAttribute(synth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_bytes(kMaxG));
   return (int)cudaGetLastError();

@@ -19,8 +19,8 @@ Output is 16-bit little-endian stereo (4 bytes a sample), mono duplicated.
    reference decoder's float32 operation order (bit-exact, no device);
  - backend="golden": the numpy float64 oracle (golden/) on the pure-Python
    parse path (no device).
-The device paths run ops.kernels.decode_chunk (K1 -> K2 -> K3 on CUDA, the
-plain chain on the CPU) with the DSP state kept on `device`.
+The device paths run ops.kernels.decode_chunk (the chain kernel on CUDA,
+the plain chain on the CPU) with the DSP state kept on `device`.
 """
 
 from __future__ import annotations

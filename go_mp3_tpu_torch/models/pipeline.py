@@ -5,7 +5,8 @@ Counterpart of go_mp3_tpu/models/pipeline.py: granules_from_frame and
 pack_granule_batch stage the pure-Python parser's frames as the JAX package
 does (numpy, the short/mixed reorder applied on the host), and
 StreamDecoder carries one stream's DecodeState on the device across chunks
-that go through ops.kernels.decode_chunk on the GranuleBatch route of K1.
+that go through ops.kernels.decode_chunk on the GranuleBatch route of K1
+(inside the chain kernel on the card).
 """
 
 from __future__ import annotations

@@ -111,6 +111,8 @@ def load():
         ("gomp3_synth_init", [i, p, p]),
         ("gomp3_synth", [i, p, p, p, p, p, p, i, i, i, p]),
         ("gomp3_unpack_fused", [i, p, p, p, p, i, i, i, i, p]),
+        ("gomp3_chain_init", [i] + [p] * 15),
+        ("gomp3_chain", [i, i, pp, p, p, p, p, p, p, i, i, i, i, i, p]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

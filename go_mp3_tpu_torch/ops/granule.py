@@ -8,6 +8,9 @@ ops/kernels.py against it on the card:
   antialias -> IMDCT -> overlap-add -> freq inv (kernel K2, hybrid.cu)
   polyphase matrixing + FIR -> int16, state    (kernel K3, synth.cu)
 
+decode_chunk_ref, the three in turn, is the plain version of the chain
+kernel K5 (chain.cu), which runs them in one launch.
+
 K1 also reads the fused wire rows of the corpus path (plain version
 requant_stereo_fused_ref), whose unpack alone is kernel K4
 (unpack_fused.cu; plain versions unpack_fused_ref and
@@ -535,12 +538,19 @@ def unpack_fused_mono_ref(buf: torch.Tensor, t: int, tail_lines: int):
     return _unpack_fused_rows(buf, t, tail_lines, nch=1)
 
 
+def batch_from_fused(buf: torch.Tensor, t: int, tail_lines: int,
+                     mono: bool = False) -> GranuleBatch:
+    """Fused wire rows -> the GranuleBatch they carry (the unpack, then
+    batch_from_packed8)."""
+    unpack = unpack_fused_mono_ref if mono else unpack_fused_ref
+    return batch_from_packed8(*unpack(buf, t, tail_lines))
+
+
 def requant_stereo_fused_ref(buf: torch.Tensor, t: int, tail_lines: int,
                              mono: bool = False, stereo: bool = True):
     """K1's plain version on the fused wire rows: the unpack, then
     requant_stereo_ref."""
-    unpack = unpack_fused_mono_ref if mono else unpack_fused_ref
-    return requant_stereo_ref(batch_from_packed8(*unpack(buf, t, tail_lines)), stereo)
+    return requant_stereo_ref(batch_from_fused(buf, t, tail_lines, mono), stereo)
 
 
 def batch_from_any(packed) -> GranuleBatch:

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels K1-K4 (csrc/*.cu).
+"""Wrappers of the hand-written CUDA kernels K1-K5 (csrc/*.cu).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
  - on CPU tensors, runs the kernel's plain PyTorch version (ops/granule.py);
@@ -16,9 +16,13 @@ in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
   synth           K3  csrc/synth.cu           polyphase, int16 PCM, FIFO
                                               (fused; v stays on chip)
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
+  chain           K5  csrc/chain.cu           K1 -> K2 -> K3 in one kernel,
+                                              x and x18 kept on chip
 
-decode_chunk runs K1 -> K2 -> K3 over one [S, T] chunk; decode_chunk_fused
-runs the same chain with K1 reading the fused wire rows itself.
+decode_chunk runs the chain over one [S, T] chunk of any of K1's array
+inputs; decode_chunk_fused over one chunk of fused wire rows. On the card
+both launch K5 once; K1, K2 and K3 stay public wrappers of their own
+kernels, held against K5 and their plain versions by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def _library(device: torch.device):
         _check_rc("hybrid_init", lib.gomp3_hybrid_init(idx, *map(ptr, hyb)))
         syn = [np.ascontiguousarray(T.SYNTH_N_WIN.T), T.SYNTH_DTBL]
         _check_rc("synth_init", lib.gomp3_synth_init(idx, *map(ptr, syn)))
+        _check_rc("chain_init", lib.gomp3_chain_init(idx, *map(ptr, keep + hyb + syn)))
         _ready_devices.add(idx)
     return lib, idx
 
@@ -108,7 +113,7 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def run_length(units_per_run: int, t_dim: int, want: int, longest: int = 4) -> int:
-    """Granules per run of K2 and K3, or per tile of K1: the first
+    """Granules per run of K2, K3 and K5, or per tile of K1: the first
     of longest, longest / 2, ..., 1 at which the chunk splits into at least
     `want` units of work (`units_per_run` units for each run of granules).
     Longer runs of K2 and K3 share more of each run's extra predecessor
@@ -216,11 +221,7 @@ def _requant_stereo_launch(layout, tensors, s_dim, t_dim, stereo, g: int,
     K1_TILES; no output depends on it). S == 0 or T == 0 launches
     nothing."""
     dev = tensors[0].device
-    if layout in (_INT16, _BATCH):
-        _check_aligned(tensors[0], "spectra", 8)
-    elif layout == _INT8:
-        _check_aligned(tensors[0], "tail8", 4)
-        _check_aligned(tensors[1], "head16", 8)
+    _check_k1_alignment(layout, tensors)
     out = torch.empty((s_dim, t_dim, 2, 576), dtype=torch.float32, device=dev)
     ginfo = torch.empty((s_dim, t_dim), dtype=torch.int32, device=dev)
     if not (s_dim and t_dim):
@@ -235,6 +236,26 @@ def _requant_stereo_launch(layout, tensors, s_dim, t_dim, stereo, g: int,
     # the int8 interface has no count of its own: add_counts ignores "int8"
     add_counts({"requant_stereo": 1, _LAYOUT_ROUTE.get(layout, "int8"): 1})
     return out, ginfo
+
+
+def _k1_any(packed, t, tail_lines, mono):
+    """Check one of K1's four inputs -> (layout, tensors, S, T): fused wire
+    rows (a tensor, described by t, tail_lines and mono) or the arrays and
+    GranuleBatch of _k1_inputs."""
+    if isinstance(packed, torch.Tensor):
+        if t is None:
+            raise ValueError("fused wire rows need t and tail_lines")
+        _check_wire(packed, t, tail_lines, mono)
+        return _FUSED, (packed,), packed.shape[0], t
+    return _k1_inputs(packed)
+
+
+def _check_k1_alignment(layout, tensors) -> None:
+    if layout in (_INT16, _BATCH):
+        _check_aligned(tensors[0], "spectra", 8)
+    elif layout == _INT8:
+        _check_aligned(tensors[0], "tail8", 4)
+        _check_aligned(tensors[1], "head16", 8)
 
 
 # -- K2, K3 --------------------------------------------------------------------
@@ -351,20 +372,116 @@ def unpack_fused(buf: torch.Tensor, t: int, tail_lines: int, mono: bool = False)
     return tail8, head16, side8
 
 
+# -- K5 ------------------------------------------------------------------------
+
+# granules a run: every run the chain kernel takes (csrc/chain.cu)
+CHAIN_RUNS = (1, 2, 4)
+
+
+def chain_run(dev: torch.device, s_dim: int, t_dim: int) -> int:
+    """K5's granules a block: the longest run, up to 4, that still gives
+    two blocks per SM (each block recomputes two granules before its run,
+    so longer runs waste less; 4 was the fastest at 64 x 240 on an H100,
+    1 at the Decoder's 1 x 128). No output depends on it."""
+    return run_length(s_dim, t_dim, 2 * _sm_count(dev), CHAIN_RUNS[-1])
+
+
+def chain(packed, state: G.DecodeState, valid: torch.Tensor,
+          out: torch.Tensor | None = None, *, t: int | None = None,
+          tail_lines: int = 0, mono: bool = False):
+    """K5, the granule chain: K1 -> K2 -> K3 over one [S, T] chunk in one
+    kernel. `packed` is any of K1's four inputs: the int16 or int8 arrays,
+    a GranuleBatch, or fused wire rows u8 [S, wire.stream_nbytes(t,
+    tail_lines, mono)] (a tensor; then t, tail_lines and mono describe
+    it). state: store f32 [S,2,32,18] and v_fifo f32 [S,2,16,64]; valid
+    int32 [S] (0 <= valid <= T) -> (pcm int16 [S, T*576, 2], the state after
+    each stream's valid granules; a copy of it when T == 0). `out`, if
+    given, receives the PCM. One block per (stream, run of chain_run
+    granules). On CPU tensors: the plain chain (decode_chunk_ref).
+    `chain.int16_launches`, `.batch_launches` and `.fused_launches` count
+    the launches of those K1 routes among `chain.launches`."""
+    layout, tensors, s_dim, t_dim = _k1_any(packed, t, tail_lines, mono)
+    dev = tensors[0].device
+    _expect(state.store, "store", torch.float32, (s_dim, 2, 32, 18), dev)
+    _expect(state.v_fifo, "v_fifo", torch.float32, (s_dim, 2, 16, 64), dev)
+    _expect(valid, "valid", torch.int32, (s_dim,), dev)
+    if out is not None:
+        _expect(out, "out", torch.int16, (s_dim, t_dim * 576, 2), dev)
+    if not _route(dev):
+        b = (G.batch_from_fused(packed, t_dim, tail_lines, mono) if layout == _FUSED
+             else G.batch_from_any(packed))
+        pcm, st = G.decode_chunk_ref(b, state, valid)
+        return (pcm if out is None else out.copy_(pcm)), st
+    return _chain_launch(layout, tensors, s_dim, t_dim, state, valid, out,
+                         chain_run(dev, s_dim, t_dim), tail_lines, mono)
+
+
+def _chain_launch(layout, tensors, s_dim, t_dim, state: G.DecodeState, valid, out,
+                  g: int, tail_lines: int = 0, mono: bool = False):
+    """K5's launch on checked CUDA tensors (K1's inputs of `layout` in
+    csrc/requant_stereo.cu's order), `g` granules a block (one of
+    CHAIN_RUNS; no output depends on it). T == 0 launches nothing: the C
+    entry point copies the state."""
+    dev = tensors[0].device
+    _check_k1_alignment(layout, tensors)
+    pcm = out if out is not None else torch.empty(
+        (s_dim, t_dim * 576, 2), dtype=torch.int16, device=dev)
+    _check_aligned(pcm, "out", 4)
+    store = torch.empty_like(state.store)
+    fifo = torch.empty_like(state.v_fifo)
+    lib, idx = _library(dev)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    _check_rc("chain", lib.gomp3_chain(
+        idx, layout, ptrs, state.store.data_ptr(), state.v_fifo.data_ptr(),
+        valid.data_ptr(), pcm.data_ptr(), store.data_ptr(), fifo.data_ptr(),
+        s_dim, t_dim, g, tail_lines, 1 if mono else 2,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    if s_dim and t_dim:
+        add_counts({"chain": 1, "chain_" + _LAYOUT_ROUTE.get(layout, "int8"): 1})
+    return pcm, G.DecodeState(store=store, v_fifo=fifo)
+
+
+def decode_chunk(packed, state: G.DecodeState, valid: torch.Tensor,
+                 out: torch.Tensor | None = None):
+    """One [S, T] chunk of granules (any input of requant_stereo: either
+    packed interface or a GranuleBatch) plus the state -> (pcm int16
+    [S, T*576, 2], state after each stream's valid granules; the state
+    itself, copied, when T == 0): K5 (chain); `out`, if given, receives
+    the PCM (decode_chunk_impl and decode_chunk_batch,
+    go_mp3_tpu/ops/granule.py:493, :745, :758)."""
+    return chain(packed, state, valid, out)
+
+
+def decode_chunk_fused(buf: torch.Tensor, state: G.DecodeState,
+                       valid: torch.Tensor, t: int, tail_lines: int,
+                       mono: bool = False, out: torch.Tensor | None = None):
+    """decode_chunk over one chunk of fused rows: K5 with K1 reading the
+    wire (decode_chunk_fused_batch_impl and decode_chunk_fused_mono_batch_impl,
+    go_mp3_tpu/ops/granule.py:726-741)."""
+    return chain(buf, state, valid, out, t=t, tail_lines=tail_lines, mono=mono)
+
+
 # -- launch counts -------------------------------------------------------------
 
-KERNELS = (requant_stereo, hybrid, synth, unpack_fused)
-# K1's routes counted apart, among requant_stereo.launches (the int8
-# interface's are the rest)
-_K1_ROUTES = {"int16": "int16_launches", "granule_batch": "batch_launches",
-              "fused": "fused_launches"}
+KERNELS = (requant_stereo, hybrid, synth, unpack_fused, chain)
+# K1's routes counted apart, among requant_stereo.launches and chain.launches
+# (the int8 interface's are the rest): all_counts() key -> (wrapper, count)
+_ROUTES = {
+    "int16": (requant_stereo, "int16_launches"),
+    "granule_batch": (requant_stereo, "batch_launches"),
+    "fused": (requant_stereo, "fused_launches"),
+    "chain_int16": (chain, "int16_launches"),
+    "chain_granule_batch": (chain, "batch_launches"),
+    "chain_fused": (chain, "fused_launches"),
+}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for attr in _K1_ROUTES.values():
-        setattr(requant_stereo, attr, 0)
+    for fn, attr in _ROUTES.values():
+        setattr(fn, attr, 0)
 
 
 reset_launch_counts()
@@ -376,43 +493,15 @@ def launch_counts() -> dict[str, int]:
 
 def all_counts() -> dict[str, int]:
     """launch_counts() and those of K1's int16, GranuleBatch and wire
-    routes ("int16", "granule_batch", "fused")."""
+    routes, of K1's kernel ("int16", "granule_batch", "fused") and of the
+    chain's ("chain_int16", "chain_granule_batch", "chain_fused")."""
     return {**launch_counts(),
-            **{r: getattr(requant_stereo, a) for r, a in _K1_ROUTES.items()}}
+            **{r: getattr(fn, a) for r, (fn, a) in _ROUTES.items()}}
 
 
 def add_counts(delta: dict[str, int]) -> None:
     """Add `delta` (keys of all_counts()) to the counts."""
     for k in KERNELS:
         k.launches += delta.get(k.__name__, 0)
-    for r, a in _K1_ROUTES.items():
-        setattr(requant_stereo, a, getattr(requant_stereo, a) + delta.get(r, 0))
-
-
-# -- the chain -----------------------------------------------------------------
-
-
-def decode_chunk(packed, state: G.DecodeState, valid: torch.Tensor,
-                 out: torch.Tensor | None = None):
-    """One [S, T] chunk of granules (any input of requant_stereo: either
-    packed interface or a GranuleBatch) plus the state -> (pcm int16
-    [S, T*576, 2], state after each stream's valid granules; the state
-    itself, copied, when T == 0). K1 -> K2 -> K3; `out`, if given,
-    receives the PCM (decode_chunk_impl and decode_chunk_batch,
-    go_mp3_tpu/ops/granule.py:493, :745, :758)."""
-    return _chain(*requant_stereo(packed), state, valid, out)
-
-
-def decode_chunk_fused(buf: torch.Tensor, state: G.DecodeState,
-                       valid: torch.Tensor, t: int, tail_lines: int,
-                       mono: bool = False, out: torch.Tensor | None = None):
-    """decode_chunk over one chunk of fused rows: K1 on the wire -> K2 ->
-    K3 (decode_chunk_fused_batch_impl and decode_chunk_fused_mono_batch_impl,
-    go_mp3_tpu/ops/granule.py:726-741)."""
-    return _chain(*requant_stereo_fused(buf, t, tail_lines, mono), state, valid, out)
-
-
-def _chain(x, ginfo, state: G.DecodeState, valid, out):
-    x18, store = hybrid(x, ginfo, state.store, valid)
-    pcm, fifo = synth(x18, ginfo, state.v_fifo, valid, out=out)
-    return pcm, G.DecodeState(store=store, v_fifo=fifo)
+    for r, (fn, a) in _ROUTES.items():
+        setattr(fn, a, getattr(fn, a) + delta.get(r, 0))

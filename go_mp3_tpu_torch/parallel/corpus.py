@@ -4,8 +4,8 @@ decode_corpus_fast, the throughput entry point, is the counterpart of
 go_mp3_tpu/parallel/corpus.py's, with the JAX function's parameters in
 its order and with its defaults, then a keyword-only `device`.
 decode_corpus, its "auditability path", decodes streams pre-parsed by the
-pure-Python parser (parse_stream_granules), as GranuleBatches through K1's
-GranuleBatch route, one chunk at a time.
+pure-Python parser (parse_stream_granules), as GranuleBatches through the
+chain kernel's GranuleBatch route, one chunk at a time.
 
 In decode_corpus_fast the C++ parser fills [S, T] chunks of every stream
 into host arrays; the chunks reach the card
@@ -19,10 +19,10 @@ fused=True (the default) is the production path:
    group decodes on its own, and results come back in the caller's order;
  - tail_buckets caps each group's shipped tail lines at the smallest
    bucket covering the nonzero lines (exact: the extent is scanned);
- - on the card K1 reads the wire rows themselves (requant_stereo_fused)
-   and K1 -> K2 -> K3 decode them, chunk by chunk (parallel/segment.py
-   run_segment_eager), or with drain=k as one captured CUDA graph per
-   k-chunk segment (SegmentGraph);
+ - on the card the chain kernel (K1 -> K2 -> K3 in one launch) reads the
+   wire rows themselves and decodes them, chunk by chunk
+   (parallel/segment.py run_segment_eager), or with drain=k as one
+   captured CUDA graph per k-chunk segment (SegmentGraph);
  - n_threads > 1 parses disjoint lane blocks in worker threads.
 fused=False is the three-array int8 interface; both paths drop to the int16
 interface when a stream's tail spectra overflow int8 (an input-range path,
@@ -196,7 +196,7 @@ def decode_corpus(
     has ended contributes zero rows and valid 0, which keeps its state),
     copied to `device` and decoded by decode_fn(batch, states, valid) ->
     (pcm int16 [S, chunk_t*576, 2], states), by default
-    kernels.decode_chunk: K1 on its GranuleBatch route -> K2 -> K3.
+    kernels.decode_chunk: the chain kernel on its GranuleBatch route.
     phase_seconds has "pack" and "emit" on the host clock and "h2d",
     "kernels", "d2h" as CUDA event time ("parse" is the caller's).
 

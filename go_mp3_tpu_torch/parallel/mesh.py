@@ -3,7 +3,7 @@
 Counterpart of go_mp3_tpu/parallel/mesh.py. MP3 streams are independent,
 so the multi-device strategy is the JAX package's: split the leading
 stream axis S of a [S, T, ...] chunk into contiguous lane blocks, one per
-mesh entry, and decode each block on its device with K1 -> K2 -> K3
+mesh entry, and decode each block on its device with the chain kernel
 (ops/kernels.decode_chunk). No data crosses devices: each block's input
 goes from the host to its device, and each block's PCM stays there (or
 goes to the host, copied by its own device).

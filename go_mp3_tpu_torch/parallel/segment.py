@@ -3,23 +3,23 @@
 Counterpart of scan_fused and drain mode's scan_stacked in
 go_mp3_tpu/parallel/corpus.py (:566-603, :672-675), over
 decode_chunk_fused_batch_impl and its mono twin (go_mp3_tpu/ops/granule.py:
-726-741): for each of k chunks and each lane group, K1 on the wire rows
-(requant_stereo_fused) -> K2 -> K3, the per-group state carried from chunk
-to chunk.
+726-741): for each of k chunks and each lane group, one launch of the
+chain kernel (kernels.decode_chunk_fused: K1 on the wire rows -> K2 -> K3,
+x and x18 kept on chip), the per-group state carried from chunk to chunk.
 
 Two forms of the same launch sequence:
  - run_segment_eager: a Python loop over chunks and lane groups. It is the
-   plain form (on CPU tensors every kernel wrapper runs its plain version)
-   and the non-drain corpus path on the card.
+   plain form (on CPU tensors the wrapper runs the plain chain) and the
+   non-drain corpus path on the card.
  - SegmentGraph: the sequence captured once into a torch.cuda.CUDAGraph
    over static buffers and replayed once per segment, the counterpart of
-   JAX's one compiled k-chunk scan. The compute stays in K1-K3; the graph
-   removes the per-launch host dispatch (3 kernel launches per chunk and
-   group).
+   JAX's one compiled k-chunk scan. The compute stays in the chain kernel;
+   the graph removes the per-launch host dispatch (one launch per chunk
+   and group).
 
 A lane group is a (lanes, mono) pair: mono groups ship the half-width wire
 (ops/wire.py). Padding chunks carry valid = 0, which leaves the state as it
-was (K2 and K3 keep it), so a short last segment is padded with them.
+was (the chain kernel keeps it), so a short last segment is padded with them.
 """
 
 from __future__ import annotations

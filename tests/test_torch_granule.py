@@ -269,8 +269,8 @@ def test_decode_chunk_end_to_end_two_chunks(seed):
 
 @pytest.mark.parametrize("interface", ["int16", "int8"])
 def test_kernel_wrappers_on_cpu_equal_plain_chain(interface):
-    """On CPU tensors decode_chunk (K1 -> K2 -> K3 wrappers) runs the plain
-    versions: bit-identical to decode_chunk_ref, no kernel launch."""
+    """On CPU tensors decode_chunk (the chain wrapper) runs the plain
+    version: bit-identical to decode_chunk_ref, no kernel launch."""
     valid = np.array([32, 5, 0])
     packed = syn.random_chunk(9, 3, 32, valid)
     if interface == "int8":
@@ -290,4 +290,4 @@ def test_kernel_wrappers_on_cpu_equal_plain_chain(interface):
     assert torch.equal(st.store, ref_st.store)
     assert torch.equal(st.v_fifo, ref_st.v_fifo)
     assert K.launch_counts() == {"requant_stereo": 0, "hybrid": 0, "synth": 0,
-                                 "unpack_fused": 0}
+                                 "unpack_fused": 0, "chain": 0}

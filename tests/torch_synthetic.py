@@ -62,14 +62,21 @@ class Frame(NamedTuple):
 _FIELD_SHAPES = ((2, 2),) * 4 + ((2, 2, 3), (2, 2, 22), (2, 2, 13, 3), (2, 2, SAMPLES_PER_GR))
 
 
-def random_frame(rng: np.random.Generator, lsf, sfreq, mode, mode_ext, block_spec) -> Frame:
+# global_gain's range (upper bound exclusive), test_synth_parity's
+GAIN_RANGE = (140, 206)
+
+
+def random_frame(rng: np.random.Generator, lsf, sfreq, mode, mode_ext, block_spec,
+                 gain_range=GAIN_RANGE) -> Frame:
     """A coherent frame with white-noise spectra at realistic energy and a
-    few large values below line 64."""
+    few large values below line 64. gain_range: global_gain's range; the
+    default reaches ~10^4 x full scale, (140, 150) stays about full
+    scale."""
     f = Frame(lsf, sfreq, mode, mode_ext, tuple(block_spec),
               *(np.zeros(s, np.int32) for s in _FIELD_SHAPES))
     for gr in range(f.granules):
         for ch in range(f.channels):
-            f.global_gain[gr, ch] = rng.integers(140, 206)
+            f.global_gain[gr, ch] = rng.integers(*gain_range)
             f.scalefac_scale[gr, ch] = rng.integers(0, 2)
             if lsf == 0:
                 f.preflag[gr, ch] = rng.integers(0, 2)
@@ -161,12 +168,12 @@ def from_packed8(
 
 
 def random_chunk(
-    seed: int, n_streams: int, t: int, valid: np.ndarray
+    seed: int, n_streams: int, t: int, valid: np.ndarray, gain_range=GAIN_RANGE
 ) -> tuple[np.ndarray, np.ndarray]:
     """[S, T] packed int16 chunk holding valid[s] granules in lane s. The
     frames take the CASES in turn across lanes (each case appears once
     every 150 frames); rows at or past valid[s] are zero, as the parser
-    pads them."""
+    pads them. gain_range: random_frame's."""
     rng = np.random.default_rng(seed)
     spectra = np.zeros((n_streams, t, 2 * SAMPLES_PER_GR), np.int16)
     side = np.zeros((n_streams, t, SIDE_WIDTH), np.int16)
@@ -174,7 +181,7 @@ def random_chunk(
     for s in range(n_streams):
         frames, n = [], 0
         while n < valid[s]:
-            f = random_frame(rng, *CASES[k % len(CASES)])
+            f = random_frame(rng, *CASES[k % len(CASES)], gain_range=gain_range)
             k += 1
             frames.append(f)
             n += f.granules
