@@ -85,19 +85,34 @@ first that fails:
     golden and the card's PCM pairwise ISO full on the bundle's files, the
     corpus settings unsharded and on a two-entry mesh byte-identical to
     the per-stream decodes;
- 8. the last line: {"ok": true, "device": {...}}.
+ 8. the port's tools on the card (go_mp3_tpu_torch/tools/, through their
+    entry points): compliance on both conformance/synthetic_*.mp3 (the
+    device backend against exact: FULL COMPLIANCE at offset 0);
+    bench_single on its small fixture, exact and device, one rep (the
+    device row names the card; its PCM bytes equal exact's);
+    profile_device at S=64 T=240 with a 4-chunk segment, each variant
+    beside phase 2's time for the same kernels; profile_decode (the host
+    parse profile and torch.profiler traces of three windows: one chunk, a
+    defaults corpus run and a drain=4 corpus run, each with as many
+    chain-kernel events in the trace as chain launches counted; busy
+    share, top kernels and idle gaps printed; full output and traces in
+    build/traces/); example, whose WAV data equals phase 4's PCM;
+ 9. the last line: {"ok": true, "device": {...}}.
 
-Each phase of the main path (4 to 7) starts each run with the launch
+Each phase of the main path (4 to 8) starts each run with the launch
 counts at 0 and checks that the chain kernel ran with K1 on the expected
 route (int16 for the Decoder, the GranuleBatch in 4b's Python parse and
 5b, the int8 interface for fused=False, the wire on the fused corpus
 path; with drain, the graph), and that K1-K4 did not (in 5c K4, the
-public unpack_fused, alone); the JSON line sums the launches over them.
+public unpack_fused, alone); the JSON line sums the launches over them
+(phase 8's profile_device times kernels as phase 2 does: not counted).
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main path, its error against the plain version, its card
 time and the plain version's (phase 2's shapes), and its bound: the larger
 of its bytes over the card's memory rate and its operations over its
-float32 rate, computed from this run's inputs. The script imports torch,
+float32 rate, computed from this run's inputs (the timer, the bound
+arithmetic and the corpus lanes are go_mp3_tpu_torch/tools/cardtime.py's
+and corpus.py's, which the tools share). The script imports torch,
 the port (go_mp3_tpu_torch, whose `reference` module gives the exact C++
 backend and the ISO measure) and the seeded-granule helper
 tests/torch_synthetic.py; never jax, and no module of the JAX package
@@ -108,16 +123,33 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import io
 import json
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+try:  # the measuring code the smoke shares with the port's tools
+    from go_mp3_tpu_torch.tools.cardtime import (
+        bound,
+        card_identity,
+        chain_flops,
+        k1_flops,
+        k2_flops,
+        k3_flops,
+        nbytes,
+        time_ms,
+    )
+    from go_mp3_tpu_torch.tools.corpus import N_MONO, N_STEREO, corpus_lanes
+except ImportError:  # no torch, or not a checkout: main() says which and exits 2
+    pass
+
 SEED = 2026
 S_SMOKE, T_SMOKE = 64, 240
 
@@ -135,7 +167,6 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
 }
 GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
              "go_mp3_tpu/ops/granule.py:726")
-N_STEREO, N_MONO = 48, 16  # lane groups of the smoke corpus
 SAMPLES_PER_GR_BYTES = 576 * 4  # PCM bytes of one granule
 
 
@@ -156,47 +187,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, iters: int = 20, queued: bool = True) -> float:
-    """Mean milliseconds per call: CUDA events around `iters` calls after a
-    warm-up call. queued: the calls are enqueued behind a sleep kernel
-    long enough to hold them all, so the events time the card's work
-    alone; otherwise a call whose host side (the wrapper's checks, the
-    plain version's op dispatch) outlasts its card work is timed at its
-    host time."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    cycles = 50_000_000 if queued else 0
-    while True:
-        e0.record()
-        if cycles:
-            torch.cuda._sleep(cycles)
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        b.record()
-        b.synchronize()
-        if not queued or e0.elapsed_time(a) > host_ms or cycles >= 2**31:
-            return a.elapsed_time(b) / iters
-        cycles *= 2  # the sleep ended before the host had enqueued every call
-
-
 def phase_device() -> None:
     import torch
 
     from go_mp3_tpu_torch import reference
     from go_mp3_tpu_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    say(smi.stdout.strip().splitlines()[0])
+    say(card_identity())
     say(f"phase 1 device: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -246,62 +243,6 @@ def _rel(err, scale) -> float:
 def _rel_per_granule(got, ref) -> float:
     """max |got - ref| over each granule / that granule's max |ref|."""
     return _rel((got - ref).abs().flatten(2).amax(-1), ref.abs().flatten(2).amax(-1))
-
-
-# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at its
-# 700 W limit): HBM3 bytes a second, and float32 operations a second outside
-# the tensor cores (the kernels may not use TF32).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: int, flops: float) -> dict:
-    """The least time the card could take for a kernel's work: the larger
-    of its bytes (each input read once, each output written once) over the
-    memory rate and its operations over the float32 rate. library_ms: no
-    single PyTorch call computes any of these kernels' functions."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": n_bytes, "bound_flops": flops, "library_ms": None}
-
-
-def k1_flops(s_dim: int, t_dim: int) -> float:
-    """K1: per line and channel, the requantize product and its sign (2)
-    and the stereo matrix (2)."""
-    return 4.0 * s_dim * t_dim * 2 * 576
-
-
-def k2_flops(s_dim: int, t_dim: int) -> float:
-    """K2, per granule and channel: 31 boundaries x 8 butterflies (6
-    operations each), and per subband the IMDCT's 18 independent outputs
-    of 18 multiply-adds (COS_N36's columns i and 17 - i are negatives, 18 + i
-    and 35 - i equal, exactly in float32, and a fused multiply-add chain
-    negated is the chain of the negated operands, bit for bit), 36 window
-    multiplies and 18 overlap adds. Short blocks need fewer; K2 is bound by
-    its bytes either way. Every granule of the chunk is computed, valid or
-    not."""
-    per_subband = 18 * 18 * 2 + 36 + 18
-    return float(s_dim * t_dim * 2 * (31 * 8 * 6 + 32 * per_subband))
-
-
-# v rows of the matrixing that need a sum of their own: SYNTH_N_WIN's rows
-# 32 - i (i = 1..15) are the negatives of rows i, and rows 96 - i (i = 33..63)
-# equal rows i, exactly in float32, so v[0..16] and v[32..48] give the rest
-# by a sign or a copy, bit for bit (row 16 is ~1e-14, not 0, in float32).
-SYNTH_INDEPENDENT_ROWS = 34
-
-
-def k3_flops(s_dim: int, t_dim: int) -> float:
-    """K3, per output row (32 samples) and channel: the matrixing's 34
-    independent v values of 32 multiply-adds (SYNTH_INDEPENDENT_ROWS) and
-    the 16-tap FIR of each sample (512)."""
-    per_row = SYNTH_INDEPENDENT_ROWS * 32 + 32 * 16
-    return float(s_dim * t_dim * 18 * 2 * per_row * 2)
 
 
 def synthesis_input(seed: int, shape, dev):
@@ -646,7 +587,7 @@ def phase_chain(dev) -> dict:
                              dtype=torch.int32, device=dev)
         pick = K.chain_run(dev, s_dim, t_dim)
         out = nbytes(pcm, valid) + 2 * nbytes(state.store, state.v_fifo)
-        flops = k1_flops(s_dim, t_dim) + k2_flops(s_dim, t_dim) + k3_flops(s_dim, t_dim)
+        flops = chain_flops(s_dim, t_dim)
         for label, packed in inputs.items():
             ins = packed if isinstance(packed, tuple) else (packed,)
             runs = {g: time_ms(lambda packed=packed, g=g: _chain_launch(
@@ -814,7 +755,7 @@ def phase_kernels(dev, s_dim: int, t_dim: int) -> dict:
     eager = time_ms(lambda: K.decode_chunk(p8e, state_e, valid_e))
     pcm_e, _ = K.decode_chunk(p8e, state_e, valid_e)
     e_bound = bound(nbytes(*p8e, valid_e, pcm_e) + 2 * nbytes(*state_e),
-                    k1_flops(s_dim, 256) + k2_flops(s_dim, 256) + k3_flops(s_dim, 256))
+                    chain_flops(s_dim, 256))
     say(f"phase 2 time decode_chunk (K5', one eager chunk of the fused=False "
         f"path, int8, S={s_dim}, T=256): {eager:.4f} ms, bound "
         f"{e_bound['bound_ms']:.4f} ms ({e_bound['bound_by']})")
@@ -1070,7 +1011,7 @@ def phase_graph(dev, t_dim: int, k: int = 4) -> dict:
     # state in and out; its operations: the chain on every chunk of each group
     seg_bytes = nbytes(*bufs, *valids, *slots[2]) + 2 * sum(
         nbytes(st.store, st.v_fifo) for st in slots[1])
-    seg_flops = sum(k * (k1_flops(s, t_dim) + k2_flops(s, t_dim) + k3_flops(s, t_dim))
+    seg_flops = sum(k * chain_flops(s, t_dim)
                     for s, _, _ in groups)
     row = {
         "max_abs_err": float(worst),
@@ -1249,33 +1190,6 @@ def phase_decoder_paths(dev, data: bytes, native_pcm: bytes, exact: bytes) -> di
         say(f"phase 4b Decoder [{label}]: {secs:.2f} s of audio in {wall:.3f} "
             f"s ({secs / wall:.1f}x realtime) {detail}; launches {counts}")
     return runs.totals
-
-
-def corpus_lanes(n_escape: int = N_STEREO, n_lowrate: int = N_MONO,
-                 escape_times: int = 128, lowrate_times: int = 110) -> list[bytes]:
-    """Rotated lanes, each starting at a different frame (as bench.py
-    builds its corpus). The escape stream mixes mono and stereo frames;
-    its lanes start at the next stereo frame, so that they are the stereo
-    lane group of mono_split (their mono frames ride the stereo wire) and
-    the lowrate lanes the mono group."""
-    from go_mp3_tpu_torch.reference import index_stream
-
-    def rotated(data: bytes, n: int, step: int, stereo_first: bool) -> list[bytes]:
-        starts, _, _ = index_stream(data)
-        out = []
-        for s in range(n):
-            i = (1 + step * s) % len(starts)
-            if stereo_first:  # header byte 3, bits 7-6: channel mode, 3 = mono
-                while data[int(starts[i]) + 3] >> 6 == 3:
-                    i = (i + 1) % len(starts)
-            off = int(starts[i])
-            out.append(data[off:] + data[:off])
-        return out
-
-    escape = (ROOT / "conformance" / "synthetic_escape.mp3").read_bytes() * escape_times
-    lowrate = (ROOT / "conformance" / "synthetic_lowrate.mp3").read_bytes() * lowrate_times
-    return (rotated(escape, n_escape, 29, stereo_first=True)
-            + rotated(lowrate, n_lowrate, 43, stereo_first=False))
 
 
 def _lanes_from_device(pcm, valids) -> list[bytes]:
@@ -1600,6 +1514,124 @@ def phase_conformance() -> dict:
     return runs.totals
 
 
+def _tool_json(fn, log: Path) -> tuple:
+    """fn() with its standard output written to `log` -> (fn's return
+    value, the JSON object on the output's last line)."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = fn()
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text(buf.getvalue())
+    return rc, json.loads(buf.getvalue().splitlines()[-1])
+
+
+# phase 2's rows beside profile_device's variants: (row, its route or None)
+PHASE2_OF_VARIANT = {
+    "unpack (K4)": (("unpack_fused", None),),
+    "+requant+stereo (K1, int8)": (("requant_stereo", None),),
+    "+requant+stereo (K1, wire)": (("requant_stereo", "fused"),),
+    "+aa+imdct+overlap (K1 -> K2)": (("requant_stereo", None), ("hybrid", None)),
+    "full chunk (K5)": (("chain", None),),
+}
+
+
+def phase_tools(dev, data: bytes, native_pcm: bytes, rows: dict) -> dict:
+    """Phase 8: the port's tools (go_mp3_tpu_torch/tools/) on the card,
+    through their entry points. Each decoding run goes through _Launches;
+    profile_device's timing loops, like phase 2's, are not main-path runs
+    and are not counted. -> the launches summed over the counted runs."""
+    from go_mp3_tpu_torch.tools import (
+        bench_single,
+        compliance,
+        example,
+        profile_decode,
+        profile_device,
+    )
+    runs = _Launches()
+    card = card_identity()
+    logs = ROOT / "build" / "traces"
+
+    for f in sorted((ROOT / "conformance").glob("synthetic_*.mp3")):
+        (rc, r), wall, counts = runs.run(f"phase 8 compliance {f.name}", lambda f=f: _tool_json(
+            lambda: compliance.main([str(f), "--backend", "device", "--oracle-backend",
+                                     "exact", "--json"]), logs / f"compliance_{f.stem}.log"))
+        check(rc == 0 and r["verdict"] == "FULL COMPLIANCE" and r["offset"] == 0
+              and r["device"] == card, f"phase 8 compliance {f.name}: exit {rc}, {r}")
+        _check_chain(counts, f"phase 8 compliance {f.name}", "int16")
+        say(f"phase 8 compliance {f.name} (device vs exact on {r['device']}): "
+            f"{r['verdict']}, offset {r['offset']}, RMS {r['rms']:.6f}, max "
+            f"{r['max_diff']} over {r['total_samples']} samples ({wall:.3f} s); "
+            f"launches {counts}")
+
+    bench, wall, counts = runs.run("phase 8 bench_single", lambda: bench_single.rows(
+        fixtures=("small",), backends=("exact", "device"), device=dev, reps=1))
+    by = {r["backend"]: r for r in bench}
+    check(by["device"]["device"] == card and by["exact"]["device"] == "cpu"
+          and by["device"]["bytes_out"] == by["exact"]["bytes_out"] > 0,
+          f"phase 8 bench_single: rows {bench}")
+    _check_chain(counts, "phase 8 bench_single", "int16")
+    for r in bench:
+        say(f"phase 8 bench_single: {json.dumps(r)}")
+
+    rc, prof = _tool_json(lambda: profile_device.main(
+        ["--s", str(S_SMOKE), "--t", str(T_SMOKE), "--chunks", "4"]),
+        logs / "profile_device.log")
+    check(rc == 0 and prof["device"] == card and len(prof["rows"]) == 7,
+          f"phase 8 profile_device: exit {rc}, {prof}")
+    say(f"phase 8 profile_device (S={prof['s']} T={prof['t']}, parsed escape granules; "
+        f"card time, ms; beside phase 2's synthetic batch, the same timer), {card}:")
+    for r in prof["rows"]:
+        p2 = PHASE2_OF_VARIANT.get(r["variant"])
+        if p2:
+            p2_ms = sum((rows[n]["routes"][route] if route else rows[n])["ms"]
+                        for n, route in p2)
+            beside = f"phase 2 {' + '.join(n for n, _ in p2)} {p2_ms:.4f}"
+        elif r["variant"] == "full chunk (K1 -> K2 -> K3)":
+            beside = f"phase 2 K1 -> K2 -> K3 {rows['chain']['k1_k2_k3_ms']:.4f}"
+        else:
+            beside = "phase 2: no row at this shape"
+        say(f"  {r['variant']:44s} {r['ms']:.4f} (plain {r['plain_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f}, {r['bound_by']}); {beside}")
+
+    (rc, trace), wall, counts = runs.run("phase 8 profile_decode", lambda: _tool_json(
+        lambda: profile_decode.main([]), logs / "profile_decode.log"))
+    check(rc == 0 and trace["device"] == card, f"phase 8 profile_decode: exit {rc}")
+    check(counts["chain"] == counts["chain_granule_batch"] + counts["chain_fused"]
+          and counts["segment_graph"] > 0
+          and not any(counts[n] for n in STAGE_KERNELS),
+          f"phase 8 profile_decode: launches {counts}")
+    for w in trace["windows"]:
+        check(w["chain_events"] > 0 and w["chain_events"] == w["chain_launches"],
+              f"phase 8 profile_decode [{w['name']}]: {w['chain_events']} chain-kernel "
+              f"events in the trace, {w['chain_launches']} chain launches counted "
+              f"({w['graph_replays']} graph replays)")
+        top = "; ".join(f"{n[:60]} {r['count']}x {r['us'] / 1e3:.3f} ms"
+                        for n, r in list(w["by_name"].items())[:4])
+        gaps = "; ".join(
+            f"{g['us'] / 1e3:.3f} ms under {g['host_op']} ("
+            + ", ".join(f"{n[:50]} {us / 1e3:.3f}" for n, us in g["host_self"][:2]) + ")"
+            for g in w["gaps"])
+        say(f"phase 8 trace [{w['name']}] ({w['trace']}): window {w['wall_s']:.4f} s "
+            f"profiled, {w['unprofiled_wall_s']:.4f} s unprofiled; device busy "
+            f"{w['busy_us'] / 1e3:.3f} of {w['window_us'] / 1e3:.3f} ms "
+            f"({100 * w['busy_share']:.2f}%); chain kernel {w['chain_events']} events = "
+            f"{w['chain_launches']} launches ({w['graph_replays']} graph replays); "
+            f"top: {top}; longest idle gaps: {gaps}")
+    say(f"phase 8 profile_decode ({wall:.3f} s; full output {logs / 'profile_decode.log'}); "
+        f"launches {counts}")
+
+    src, dst = ROOT / "build" / "example_in.mp3", ROOT / "build" / "example_out.wav"
+    src.write_bytes(data)
+    rc, wall, counts = runs.run("phase 8 example", lambda: example.main([str(src), str(dst)]))
+    wav = dst.read_bytes()
+    check(rc == 0 and wav[:44] == example.wav_header(len(native_pcm), 44100)
+          and wav[44:] == native_pcm, "phase 8 example: the WAV is not phase 4's PCM")
+    _check_chain(counts, "phase 8 example", "int16")
+    say(f"phase 8 example: {dst.name}, {len(wav)} B, data = phase 4's PCM "
+        f"({wall:.3f} s); launches {counts}")
+    return runs.totals
+
+
 def check_standalone() -> None:
     """No module of jax was imported, and every module loaded from this
     checkout is the port's, this script or one of the tests' helpers."""
@@ -1627,8 +1659,6 @@ def main(argv=None) -> int:
     if not (ROOT / "go_mp3_tpu_torch").is_dir() or not (ROOT / "conformance").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-
     from go_mp3_tpu_torch.device import resolve_device
 
     dev = resolve_device(None)
@@ -1655,7 +1685,7 @@ def main(argv=None) -> int:
     for part in (phase_decoder_paths(dev, data, native_pcm, exact),
                  corpus_totals, phase_public_unpack(dev, lanes), py_totals,
                  phase_mesh(dev, lanes, corpus_pcm, py_streams, py_pcm),
-                 phase_conformance()):
+                 phase_conformance(), phase_tools(dev, data, native_pcm, rows)):
         for name, n in part.items():
             counts[name] = counts.get(name, 0) + n
     check_standalone()

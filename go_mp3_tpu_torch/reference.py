@@ -21,8 +21,11 @@ from .decoder import Decoder
 from .native.lib import available as native_available  # noqa: F401
 from .native.lib import index_stream  # noqa: F401
 
-FULL_RMS = 0.289  # LSB
-FULL_MAXDIFF = 2  # LSB
+# ISO/IEC 11172-4 thresholds in 16-bit LSBs: full and limited accuracy
+FULL_RMS = 0.289  # 2^-15 / sqrt(12) * 32768
+FULL_MAXDIFF = 2  # 2^-14 * 32768
+LIMITED_RMS = 4.62  # 2^-11 / sqrt(12) * 32768
+LIMITED_MAXDIFF = 32  # 2^-10 * 32768
 
 
 def iso_metrics(a: bytes, b: bytes) -> tuple[float, int]:

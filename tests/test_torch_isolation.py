@@ -58,6 +58,15 @@ MODULES = [
     "go_mp3_tpu_torch.parallel.mesh",
     "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
+    "go_mp3_tpu_torch.tools",
+    "go_mp3_tpu_torch.tools.bench_single",
+    "go_mp3_tpu_torch.tools.cardtime",
+    "go_mp3_tpu_torch.tools.compliance",
+    "go_mp3_tpu_torch.tools.corpus",
+    "go_mp3_tpu_torch.tools.example",
+    "go_mp3_tpu_torch.tools.fuzz_soak",
+    "go_mp3_tpu_torch.tools.profile_decode",
+    "go_mp3_tpu_torch.tools.profile_device",
     "go_mp3_tpu_torch.utils",
     "go_mp3_tpu_torch.utils.state",
 ]
