@@ -38,7 +38,11 @@ first that fails:
     through K1 (every input and tile), K2, K3 (every run length), the
     chain (every input and run length), K4, decode_chunk and
     decode_chunk_fused: empty outputs, and the state returned equal to the
-    state given;
+    state given; the bench's energy kernel (csrc/energy.cu) bit for bit
+    against its plain version at S=64 T=240 and S=1 T=128 (sums that wrap
+    past 2^31, -32768 included), into a fresh output and into a row of a
+    [C, S] tensor, timed beside the plain version and the torch expression
+    of bench.py's reduction;
  3. chunk invariance: the same granules decoded as one chunk and split at
     other boundaries, state carried: bit-identical PCM and state; and a
     k = 4 segment of both lane groups replayed twice through the captured
@@ -97,15 +101,21 @@ first that fails:
     chain-kernel events in the trace as chain launches counted; busy
     share, top kernels and idle gaps printed; full output and traces in
     build/traces/); example, whose WAV data equals phase 4's PCM;
- 9. the last line: {"ok": true, "device": {...}}.
+ 9. the bench (python -m go_mp3_tpu_torch.bench, through its main, in this
+    process) on the smoke corpus, every schedule run twice: its JSON line
+    names the card; the energies of every full (chunk, lane) equal the
+    energies of the same granules of phase 5's PCM bit for bit; it launched
+    the chain kernel on the wire and the energy kernel alone;
+then the kernels line and the last line: {"ok": true, "device": {...}}.
 
-Each phase of the main path (4 to 8) starts each run with the launch
+Each phase of the main path (4 to 9) starts each run with the launch
 counts at 0 and checks that the chain kernel ran with K1 on the expected
 route (int16 for the Decoder, the GranuleBatch in 4b's Python parse and
 5b, the int8 interface for fused=False, the wire on the fused corpus
-path; with drain, the graph), and that K1-K4 did not (in 5c K4, the
-public unpack_fused, alone); the JSON line sums the launches over them
-(phase 8's profile_device times kernels as phase 2 does: not counted).
+path and in the bench; with drain, the graph), and that K1-K4 did not (in
+5c K4, the public unpack_fused, alone); the JSON line sums the launches
+over them (phase 8's profile_device times kernels as phase 2 does: not
+counted).
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main path, its error against the plain version, its card
 time and the plain version's (phase 2's shapes), and its bound: the larger
@@ -137,6 +147,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 try:  # the measuring code the smoke shares with the port's tools
     from go_mp3_tpu_torch.tools.cardtime import (
+        INT32_OPS,
         bound,
         card_identity,
         chain_flops,
@@ -164,6 +175,7 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
                      "go_mp3_tpu/ops/granule.py:661"),
     "chain": ("go_mp3_tpu_torch/csrc/chain.cu",
               "go_mp3_tpu/ops/granule.py:493"),
+    "energy": ("go_mp3_tpu_torch/csrc/energy.cu", "bench.py:416"),
 }
 GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
              "go_mp3_tpu/ops/granule.py:726")
@@ -618,6 +630,71 @@ def phase_chain(dev) -> dict:
     row.update(max_abs_err=float(worst[1]), **int8["S=64 T=240"],
                shapes={"S=1 T=128": int8["S=1 T=128"]}, routes=routes)
     return row
+
+
+ENERGY_SHAPES = ((64, 240), (1, 128))  # (S, T): the bench's chunk, the Decoder's
+
+
+def energy_pcm(seed: int, s_dim: int, t_dim: int, dev):
+    """Seeded int16 PCM [S, T*576, 2] over the full range: every lane's sum
+    passes 2^31 and wraps; lane 0 is all -32768, and each lane's first
+    sample is."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-32768, 32768, (s_dim, t_dim * 576, 2)).astype(np.int16)
+    a[0] = -32768
+    a[:, 0, 0] = -32768
+    return torch.from_numpy(a).to(dev)
+
+
+def phase_energy(dev) -> dict:
+    """The energy kernel (csrc/energy.cu, kernels.energy) bit for bit against
+    energy_ref at [64, 240] and [1, 128] (the sums wrap; -32768 included),
+    into a fresh output and into a row slice of a [C, S] tensor as the
+    bench writes it; timed beside energy_ref and the torch expression of
+    bench.py's reduction (three calls: int32, abs, an int32 sum). -> its row
+    of the kernels line."""
+    import torch
+
+    from go_mp3_tpu_torch.ops import granule as G
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    row = {}
+    for i, (s_dim, t_dim) in enumerate(ENERGY_SHAPES):
+        pcm = energy_pcm(SEED + 90 + i, s_dim, t_dim, dev)
+        want = G.energy_ref(pcm)
+        table = torch.zeros((3, s_dim + 2), dtype=torch.int32, device=dev)
+        got = K.energy(pcm)
+        K.energy(pcm, out=table[1, 1:s_dim + 1])
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(table[1, 1:s_dim + 1], want)
+              and not table[0].any() and not table[2].any() and not table[1, 0]
+              and not table[1, -1],
+              f"phase 2 energy S={s_dim} T={t_dim}: kernel {got[:4].tolist()} against "
+              f"energy_ref {want[:4].tolist()}")
+        expr = lambda pcm=pcm: pcm.int().abs().sum(dim=(1, 2), dtype=torch.int32)  # noqa: E731
+        same = torch.equal(expr(), want)
+        unwrapped = pcm.to(torch.int64).abs().sum(dim=(1, 2))
+        shape = f"S={s_dim} T={t_dim}"
+        row[shape] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda pcm=pcm: K.energy(pcm)),
+            "plain_ms": time_ms(lambda pcm=pcm: G.energy_ref(pcm)),
+            "torch_expr_ms": time_ms(expr),
+            **bound(nbytes(pcm, want), 2.0 * pcm.numel(), INT32_OPS),
+        }
+        r = row[shape]
+        say(f"phase 2 energy {shape}: bit-identical to energy_ref, into a fresh output and "
+            f"into a row of a [C, S] tensor ({int((unwrapped >= 2**31).sum())} of {s_dim} "
+            f"sums past 2^31, {int(unwrapped.min())}-{int(unwrapped.max())} unwrapped; "
+            f"lane 0 all -32768); card time "
+            f"{r['ms']:.4f} ms, energy_ref {r['plain_ms']:.4f} ms, torch expression "
+            f"(three calls{'' if same else ', NOT equal to energy_ref'}) "
+            f"{r['torch_expr_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_bytes']} B)")
+    first = row.pop(next(iter(row)))  # the bench's chunk, [64, 240]
+    return {**first, "shapes": row}
 
 
 def phase_empty_chunk(dev) -> None:
@@ -1632,6 +1709,65 @@ def phase_tools(dev, data: bytes, native_pcm: bytes, rows: dict) -> dict:
     return runs.totals
 
 
+def phase_bench(dev, lanes: list[bytes], corpus_pcm: list[bytes]) -> dict:
+    """Phase 9: python -m go_mp3_tpu_torch.bench on the smoke corpus, in
+    this process, through go_mp3_tpu_torch.bench.main (a run budget of 0 s:
+    every schedule runs twice). The energies of every (chunk, lane) whose
+    chunk is full (valid == chunk_t) equal numpy's wrapped int32 sum of
+    |PCM| over the same granules of phase 5's PCM (lane by lane, the
+    granules located by the running sum of the valid counts); the bench
+    launched the chain kernel on the wire and the energy kernel, nothing
+    else. -> its launches."""
+    import os
+
+    from go_mp3_tpu_torch import bench
+
+    runs = _Launches()
+    log = ROOT / "build" / "traces" / "bench.log"
+    os.environ["GOMP3_RUN_BUDGET_S"] = "0"
+    try:
+        (run, r), wall, counts = runs.run("phase 9 bench", lambda: _tool_json(
+            lambda: bench.main(["--device", str(dev)]), log))
+    finally:
+        del os.environ["GOMP3_RUN_BUDGET_S"]
+    d = r["detail"]
+    check(r == run.result and r["value"] > 0 and d["card"] == card_identity()
+          and d["device"] == str(dev) and d["n_streams"] == len(lanes)
+          and all(len(w) >= 2 for w in d["runs_wall_s"].values())
+          and set(d["runs_wall_s"]) == set(bench.SCHEDULES),
+          f"phase 9 bench: {r}")
+    t = d["chunk_t"]
+    offsets = np.cumsum(run.valids, axis=0) - run.valids
+    pairs = 0
+    for c, s in zip(*np.nonzero(run.valids == t)):
+        g0 = int(offsets[c, s])
+        lane = np.frombuffer(corpus_pcm[s], np.int16)[g0 * 1152:(g0 + t) * 1152]
+        want = np.abs(lane.astype(np.int32)).sum(dtype=np.int32)
+        check(lane.size == t * 1152 and run.energies[c, s] == want,
+              f"phase 9 bench: chunk {c} lane {s}: energy {run.energies[c, s]}, phase 5's "
+              f"PCM gives {want}")
+        pairs += 1
+    check(pairs > 0 and counts["chain"] > 0 and counts["chain_fused"] == counts["chain"]
+          and counts["energy"] > 0
+          and not any(counts[n] for n in STAGE_KERNELS) and not counts["segment_graph"],
+          f"phase 9 bench: {pairs} full chunks compared; launches {counts}")
+    say(f"phase 9 bench (python -m go_mp3_tpu_torch.bench, {wall:.3f} s in all; full output "
+        f"{log}): {r['value']:.1f}x realtime [{d['schedule']}], by schedule "
+        f"{json.dumps(d['end_to_end_x_by_schedule'])}; runs {json.dumps(d['runs_wall_s'])}; "
+        f"parse cpu min {d['parse_full_corpus_cpu_s']['min']:.4f} s, pack "
+        f"{d['probe_pack_s_per_chunk']:.5f} s/chunk, upload "
+        f"{d['probe_upload_s_per_chunk_fused']:.5f} s/chunk, compute "
+        f"{d['probe_compute_s_per_chunk_scan_amortized']:.6f} s/chunk (scan "
+        f"{d['probe_scan_total_s']:.5f} s), capture {d['capture_s']:.3f} s, d2h "
+        f"{d['d2h_mb_s']:.0f} MB/s, host cores {d['host_cores']}; ceilings (computed) "
+        f"{d['decoder_ceiling_x_realtime']:.0f}x / fused "
+        f"{d['decoder_ceiling_fused_x_realtime']:.0f}x / pipelined "
+        f"{d['decoder_ceiling_pipelined_x_realtime']:.0f}x; energies of {pairs} full "
+        f"(chunk, lane) pairs of {run.valids.size} equal phase 5's PCM energies bit for bit; "
+        f"launches {counts}")
+    return runs.totals
+
+
 def check_standalone() -> None:
     """No module of jax was imported, and every module loaded from this
     checkout is the port's, this script or one of the tests' helpers."""
@@ -1672,6 +1808,7 @@ def main(argv=None) -> int:
     phase_chunk_invariance(dev, S_SMOKE, T_SMOKE)
     rows["segment_graph"] = phase_graph(dev, T_SMOKE)
     rows["segment_graph"]["eager_chunk"] = rows.pop("segment_graph_eager_chunk")
+    rows["energy"] = phase_energy(dev)
 
     runs = _Launches()  # the main path's runs start here
     (data, native_pcm, exact), _, decoder = runs.run("phase 4 Decoder",
@@ -1685,7 +1822,8 @@ def main(argv=None) -> int:
     for part in (phase_decoder_paths(dev, data, native_pcm, exact),
                  corpus_totals, phase_public_unpack(dev, lanes), py_totals,
                  phase_mesh(dev, lanes, corpus_pcm, py_streams, py_pcm),
-                 phase_conformance(), phase_tools(dev, data, native_pcm, rows)):
+                 phase_conformance(), phase_tools(dev, data, native_pcm, rows),
+                 phase_bench(dev, lanes, corpus_pcm)):
         for name, n in part.items():
             counts[name] = counts.get(name, 0) + n
     check_standalone()

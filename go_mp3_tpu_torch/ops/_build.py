@@ -101,21 +101,29 @@ def load():
     path = library_path()
     if not path.exists():
         _build(path)
-    lib = ctypes.CDLL(str(path))
-    p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
-    for name, args in (
-        ("gomp3_requant_stereo_init", [i] + [p] * 8),
-        ("gomp3_requant_stereo", [i, i, pp, p, p, i, i, i, i, i, i, p]),
-        ("gomp3_hybrid_init", [i] + [p] * 5),
-        ("gomp3_hybrid", [i, p, p, p, p, p, p, i, i, i, i, p]),
-        ("gomp3_synth_init", [i, p, p]),
-        ("gomp3_synth", [i, p, p, p, p, p, p, i, i, i, p]),
-        ("gomp3_unpack_fused", [i, p, p, p, p, i, i, i, i, p]),
-        ("gomp3_chain_init", [i] + [p] * 15),
-        ("gomp3_chain", [i, i, pp, p, p, p, p, p, p, i, i, i, i, i, p]),
-    ):
+    _lib = bind(ctypes.CDLL(str(path)), SIGNATURES)
+    return _lib
+
+
+_p, _i, _pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+SIGNATURES = {  # C entry point -> argtypes; every one returns a CUDA error code
+    "gomp3_requant_stereo_init": [_i] + [_p] * 8,
+    "gomp3_requant_stereo": [_i, _i, _pp, _p, _p, _i, _i, _i, _i, _i, _i, _p],
+    "gomp3_hybrid_init": [_i] + [_p] * 5,
+    "gomp3_hybrid": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "gomp3_synth_init": [_i, _p, _p],
+    "gomp3_synth": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gomp3_unpack_fused": [_i, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "gomp3_chain_init": [_i] + [_p] * 15,
+    "gomp3_chain": [_i, _i, _pp, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "gomp3_energy": [_i, _p, _p, _i, ctypes.c_longlong, _p],
+}
+
+
+def bind(lib, names):
+    """Set argtypes and restype of each entry point in `names` on `lib`."""
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = args
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib

@@ -9,7 +9,8 @@ ops/kernels.py against it on the card:
   polyphase matrixing + FIR -> int16, state    (kernel K3, synth.cu)
 
 decode_chunk_ref, the three in turn, is the plain version of the chain
-kernel K5 (chain.cu), which runs them in one launch.
+kernel K5 (chain.cu), which runs them in one launch. energy_ref is the plain
+version of the bench's energy kernel (energy.cu).
 
 K1 also reads the fused wire rows of the corpus path (plain version
 requant_stereo_fused_ref), whose unpack alone is kernel K4
@@ -453,6 +454,15 @@ def decode_chunk_ref(
     x18, store = hybrid_ref(x, ginfo, state.store, valid)
     pcm, fifo = synth_ref(x18, ginfo, state.v_fifo, valid)
     return pcm, DecodeState(store=store, v_fifo=fifo)
+
+
+def energy_ref(pcm: torch.Tensor) -> torch.Tensor:
+    """Per stream, the int32 sum of |int32(pcm)| over pcm int16 [S, N, 2],
+    wrapping mod 2^32 as XLA's int32 sum does (bench.py:416-418): the
+    plain version of the energy kernel (csrc/energy.cu). Taken in int64, so
+    |-32768| is 32768 and the sum is exact before it wraps."""
+    total = pcm.to(torch.int64).abs().sum(dim=(1, 2))
+    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
 # -- packed host interfaces (layouts written by native/mp3parse.cpp) -----------

@@ -18,6 +18,8 @@ in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
   chain           K5  csrc/chain.cu           K1 -> K2 -> K3 in one kernel,
                                               x and x18 kept on chip
+  energy              csrc/energy.cu          per stream, the wrapping int32
+                                              sum of |PCM| (the bench's fence)
 
 decode_chunk runs the chain over one [S, T] chunk of any of K1's array
 inputs; decode_chunk_fused over one chunk of fused wire rows. On the card
@@ -462,9 +464,41 @@ def decode_chunk_fused(buf: torch.Tensor, state: G.DecodeState,
     return chain(buf, state, valid, out, t=t, tail_lines=tail_lines, mono=mono)
 
 
+# -- energy --------------------------------------------------------------------
+
+
+def energy(pcm: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Per stream, the int32 sum of |int32(pcm)|, wrapping mod 2^32 as
+    XLA's int32 sum does: pcm int16 [S, N, 2] -> int32 [S] (bench.py's
+    energy step, bench.py:416-418). `out`, if given, a contiguous int32 [S]
+    tensor (such as a row slice energies[c, lo:hi]), receives it. On the
+    card N must be a multiple of 4 (a chunk's N is T*576) and pcm 16-byte
+    aligned. One block per stream (csrc/energy.cu); S == 0 launches
+    nothing."""
+    dev = pcm.device
+    s_dim, n = pcm.shape[:2]
+    _expect(pcm, "pcm", torch.int16, (s_dim, n, 2), dev)
+    if out is None:
+        out = torch.empty(s_dim, dtype=torch.int32, device=dev)
+    _expect(out, "out", torch.int32, (s_dim,), dev)
+    if not _route(dev):
+        return out.copy_(G.energy_ref(pcm))
+    if n % 4:
+        raise ValueError(f"pcm: {n} samples a channel, not a multiple of 4")
+    _check_aligned(pcm, "pcm")
+    if s_dim:
+        lib, idx = _library(dev)
+        _check_rc("energy", lib.gomp3_energy(
+            idx, pcm.data_ptr(), out.data_ptr(), s_dim, 2 * n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+        energy.launches += 1
+    return out
+
+
 # -- launch counts -------------------------------------------------------------
 
-KERNELS = (requant_stereo, hybrid, synth, unpack_fused, chain)
+KERNELS = (requant_stereo, hybrid, synth, unpack_fused, chain, energy)
 # K1's routes counted apart, among requant_stereo.launches and chain.launches
 # (the int8 interface's are the rest): all_counts() key -> (wrapper, count)
 _ROUTES = {

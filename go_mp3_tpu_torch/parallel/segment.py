@@ -81,35 +81,22 @@ class SegmentGraph:
         self.t, self.widths, self.monos = t, tuple(widths), tuple(monos)
         self.valids, self.states, self.pcm = valids, states, pcm
         self.device = dev
-        # every capture and launch on the buffers' device, whatever the
-        # caller's current device is
-        with torch.cuda.device(dev):
-            self.bufs = tuple(
-                torch.zeros((v.shape[0], v.shape[1], stream_nbytes(t, w, m)),
-                            dtype=torch.uint8, device=dev)
-                for v, w, m in zip(valids, self.widths, self.monos)
-            )
-            # warm-up: every kernel once, eagerly and on a side stream, into
-            # fresh outputs (the static state and PCM stay as they are). The
-            # first launch of a kernel loads its module and the wrappers upload
-            # the tables: neither may happen while a stream is capturing.
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                run_segment_eager(self.bufs, valids, states, t, self.widths, self.monos)
-            torch.cuda.current_stream(dev).wait_stream(side)
+        self.bufs = tuple(
+            torch.zeros((v.shape[0], v.shape[1], stream_nbytes(t, w, m)),
+                        dtype=torch.uint8, device=dev)
+            for v, w, m in zip(valids, self.widths, self.monos)
+        )
 
-            before = K.all_counts()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                _, new = run_segment_eager(self.bufs, valids, states, t,
-                                           self.widths, self.monos, pcm=pcm)
-                for st, nw in zip(states, new):
-                    st.store.copy_(nw.store)
-                    st.v_fifo.copy_(nw.v_fifo)
-            # what one replay launches, in all_counts()'s keys
-            self.launches = {k: n - before[k] for k, n in K.all_counts().items()}
-            K.add_counts({k: -n for k, n in self.launches.items()})
+        def body():
+            _, new = run_segment_eager(self.bufs, valids, states, t,
+                                       self.widths, self.monos, pcm=pcm)
+            for st, nw in zip(states, new):
+                st.store.copy_(nw.store)
+                st.v_fifo.copy_(nw.v_fifo)
+
+        # the warm-up writes fresh outputs: the static state and PCM stay
+        self.graph, self.launches = capture(dev, lambda: run_segment_eager(
+            self.bufs, valids, states, t, self.widths, self.monos), body)
         # host clock; capture begins with a device synchronisation, so this
         # includes the warm-up's card time
         self.capture_seconds = time.perf_counter() - t0
@@ -119,6 +106,30 @@ class SegmentGraph:
             self.graph.replay()
         SegmentGraph.replays += 1
         K.add_counts(self.launches)
+
+
+def capture(dev: torch.device, warm_up, body):
+    """warm_up() once, eagerly and on a side stream, then body() captured as
+    one CUDA graph, every capture and launch on `dev` whatever the caller's
+    current device is. The first launch of a kernel loads its module and
+    the wrappers upload the tables: neither may happen while a stream is
+    capturing, hence the warm-up. -> (the graph, what one replay launches
+    in kernels.all_counts()'s keys); capture records the launches without
+    running them, so they are taken off the counts."""
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm_up()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+        before = K.all_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        launches = {k: n - before[k] for k, n in K.all_counts().items()}
+        K.add_counts({k: -n for k, n in launches.items()})
+    return graph, launches
 
 
 def static_slots(k: int, t: int, sizes, device):

@@ -10,6 +10,9 @@ card unless the caller passes `--device cpu`:
                   card (busy share, kernel time by name, idle gaps)
   fuzz_soak       packed8 against int16 native parse parity on mutants
   example         decode to a WAV file (or play it)
+  parse_corpus_bench  the bench's full-corpus parse probe alone (host only)
+  bench_compare   a fresh `python -m go_mp3_tpu_torch.bench` against a saved
+                  baseline line
 
 and the pieces they share with chip_smoke.py: `cardtime` (the card timer,
 the card's identity and the bound arithmetic) and `corpus` (the rotated

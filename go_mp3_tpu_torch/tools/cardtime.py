@@ -19,6 +19,9 @@ import torch
 # the tensor cores (the kernels may not use TF32).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# 32-bit integer operations a second: an SM issues 64 INT32 lanes to its
+# 128 FP32 lanes, half the float32 rate
+INT32_OPS = FP32_FLOPS / 2
 
 
 def time_ms(fn, iters: int = 20, queued: bool = True) -> float:
@@ -77,12 +80,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, flops: float) -> dict:
+def bound(n_bytes: int, flops: float, ops_per_s: float = FP32_FLOPS) -> dict:
     """The least time the card could take for a kernel's work: the larger
     of its bytes (each input read once, each output written once) over the
-    memory rate and its operations over the float32 rate. library_ms: no
-    single PyTorch call computes any of these kernels' functions."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    memory rate and its operations over their type's rate (float32 unless
+    `ops_per_s` says otherwise). library_ms: no single PyTorch call
+    computes any of these kernels' functions."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": n_bytes, "bound_flops": flops, "library_ms": None}

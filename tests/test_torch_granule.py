@@ -290,4 +290,4 @@ def test_kernel_wrappers_on_cpu_equal_plain_chain(interface):
     assert torch.equal(st.store, ref_st.store)
     assert torch.equal(st.v_fifo, ref_st.v_fifo)
     assert K.launch_counts() == {"requant_stereo": 0, "hybrid": 0, "synth": 0,
-                                 "unpack_fused": 0, "chain": 0}
+                                 "unpack_fused": 0, "chain": 0, "energy": 0}

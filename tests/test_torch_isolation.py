@@ -23,6 +23,7 @@ import torch_synthetic as syn  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "go_mp3_tpu_torch",
+    "go_mp3_tpu_torch.bench",
     "go_mp3_tpu_torch.bitstream",
     "go_mp3_tpu_torch.bitstream.bits",
     "go_mp3_tpu_torch.bitstream.frameheader",
@@ -55,16 +56,19 @@ MODULES = [
     "go_mp3_tpu_torch.ops.wire",
     "go_mp3_tpu_torch.parallel",
     "go_mp3_tpu_torch.parallel.corpus",
+    "go_mp3_tpu_torch.parallel.corpus_scan",
     "go_mp3_tpu_torch.parallel.mesh",
     "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
     "go_mp3_tpu_torch.tools",
+    "go_mp3_tpu_torch.tools.bench_compare",
     "go_mp3_tpu_torch.tools.bench_single",
     "go_mp3_tpu_torch.tools.cardtime",
     "go_mp3_tpu_torch.tools.compliance",
     "go_mp3_tpu_torch.tools.corpus",
     "go_mp3_tpu_torch.tools.example",
     "go_mp3_tpu_torch.tools.fuzz_soak",
+    "go_mp3_tpu_torch.tools.parse_corpus_bench",
     "go_mp3_tpu_torch.tools.profile_decode",
     "go_mp3_tpu_torch.tools.profile_device",
     "go_mp3_tpu_torch.utils",

@@ -125,7 +125,7 @@ def test_segment_graph_counts_each_k1_route():
     K.add_counts({"requant_stereo": 2, "fused": 2, "synth": 1, "chain": 3,
                   "chain_fused": 3})
     assert K.all_counts() == {"requant_stereo": 2, "hybrid": 0, "synth": 1,
-                              "unpack_fused": 0, "chain": 3, "int16": 0,
+                              "unpack_fused": 0, "chain": 3, "energy": 0, "int16": 0,
                               "granule_batch": 0, "fused": 2, "chain_int16": 0,
                               "chain_granule_batch": 0, "chain_fused": 3}
     assert K.requant_stereo.fused_launches == 2 and K.chain.fused_launches == 3
