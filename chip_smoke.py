@@ -30,11 +30,19 @@ first that fails:
     within the same bounds and bit-identical over every run length
     (granules a warp or block) the kernels take, and each run length timed
     at S=64, T=240; the chain kernel (K5: K1 -> K2 -> K3 in one launch,
-    which decode_chunk and decode_chunk_fused launch) on each of K1's four
-    inputs, bit-identical to K1 -> K2 -> K3 at every run length it takes
-    (S=64 at T=240 and 37, S=1 at T=128 and 1, a mono wire at S=5 T=37;
-    valid 0, T, 13-15), within bounds of its plain version, and timed
-    beside K1 + K2 + K3 at S=64 T=240 and S=1 T=128; a chunk of T=0
+    which decode_chunk and decode_chunk_fused launch; a block walks a
+    segment of L runs of G granules) on each of K1's four inputs,
+    bit-identical to K1 -> K2 -> K3 at the wrapper's (G, L) and at every G
+    with L = 1, 2, 3 and one segment a stream (S=64 at T=240 and 37, S=1
+    at T=128 and 1, a mono wire at S=5 T=37; valid 0, T, 13-15), within
+    bounds of its plain version; its shared memory a block and blocks an
+    SM printed; at S=64 T=240 and 37, S=1 T=128 and 1 every (G, L) of a
+    sweep bit for bit against K1 -> K2 -> K3 and timed, each input at the
+    wrapper's pick timed beside K1 + K2 + K3 (the pick five times at
+    [64, 240] and [1, 128], for its spread); at T=240 and S = 16, 48, 96,
+    192 and 300 (the [64, 240] chunk's streams repeated) the wrapper's
+    pick against one run a block and the other segment lengths, each
+    bit-identical to one run a block and timed; a chunk of T=0
     through K1 (every input and tile), K2, K3 (every run length), the
     chain (every input and run length), K4, decode_chunk and
     decode_chunk_fused: empty outputs, and the state returned equal to the
@@ -51,7 +59,8 @@ first that fails:
  4. Decoder: a 94 s stream (conformance/synthetic_escape.mp3 x300) read
     whole and after a seek, against the exact C++ backend, ISO full
     compliance (RMS < 0.289 LSB, max diff <= 2), and a checkpoint/resume;
-    the PCM's SHA-256;
+    the PCM's SHA-256, beside the parent commit's (PARENT; a difference
+    fails);
  4b. the Decoder's other sources, on the same stream: the pure-Python
     parse path (use_native=False: StreamDecoder, K1's GranuleBatch route)
     and the streaming parser over a non-seekable reader, both
@@ -64,7 +73,8 @@ first that fails:
     (chunk_t=240, tail_buckets=(464, 512), n_threads=8, drain=4:
     SegmentGraph replays; cold and warm) and fetch=False. All give the
     same bytes, every lane ISO fully compliant against the exact backend
-    (the SHA-256 of the lanes' PCM joined in order is printed);
+    (the SHA-256 of the lanes' PCM joined in order is printed beside the
+    parent commit's; a difference fails);
     each run prints its phase split, widths, wire bytes, graph replays,
     peak device memory, device allocations and the launches of every
     kernel (the fused path launches K1 on the wire, and K4 never);
@@ -104,7 +114,8 @@ first that fails:
  9. the bench (python -m go_mp3_tpu_torch.bench, through its main, in this
     process) on the smoke corpus, every schedule run twice: its JSON line
     names the card; the energies of every full (chunk, lane) equal the
-    energies of the same granules of phase 5's PCM bit for bit; it launched
+    energies of the same granules of phase 5's PCM bit for bit, and the
+    SHA-256 of all its energies equals the parent commit's; it launched
     the chain kernel on the wire and the energy kernel alone;
 then the kernels line and the last line: {"ok": true, "device": {...}}.
 
@@ -180,6 +191,23 @@ KERNEL_ROWS = {  # name -> (source, TPU-side program it replaces)
 GRAPH_ROW = ("go_mp3_tpu_torch/parallel/segment.py",
              "go_mp3_tpu/ops/granule.py:726")
 SAMPLES_PER_GR_BYTES = 576 * 4  # PCM bytes of one granule
+
+
+# What the main path gave before the chain kernel walked segments (the
+# parent commit's smoke, on an NVIDIA H100 80GB HBM3): no (G, L) may
+# change a bit of it.
+PARENT = {
+    "phase 4 PCM sha256": "a6732bc6d3abb31056676f6ce2ab2aa8a6655ccd5015c9cea7ef8c38f352e011",
+    "phase 5 PCM sha256": "b39ad4d61ea96bd35ce4a6cf412da03cc7f368641bd0b65bc56d7e39028febeb",
+    "phase 9 energies sha256": "0d173d2db141b825108bac9c9f0fac53126e4848cb4ba7c5b3d78d717d557a0d",
+}
+
+
+def check_parent(what: str, got: str) -> None:
+    """Print `got` beside the parent's value of `what`; fail where they differ."""
+    want = PARENT[what]
+    say(f"{what}: {got} (parent {want}: {'equal' if got == want else 'DIFFERENT'})")
+    check(got == want, f"{what} differs from the parent's")
 
 
 def say(msg: str) -> None:
@@ -522,36 +550,131 @@ def k123(packed, t_dim: int, state, valid, lines: int = WIRE_LINES, mono: bool =
     return pcm, store, fifo
 
 
-def _chain_launch(label: str, packed, s_dim, t_dim, state, valid, g, lines, mono):
-    """The chain kernel through its private launcher, `g` granules a block."""
+def _chain_launch(label: str, packed, s_dim, t_dim, state, valid, g, runs, lines, mono):
+    """The chain kernel through its private launcher: a block per segment of
+    `runs` runs of `g` granules."""
     from go_mp3_tpu_torch.ops import kernels as K
 
     if label == "fused":
         layout, tensors = K._FUSED, (packed,)
     else:
         layout, tensors, _, _ = K._k1_inputs(packed)
-    pcm, st = K._chain_launch(layout, tensors, s_dim, t_dim, state, valid, None, g,
+    pcm, st = K._chain_launch(layout, tensors, s_dim, t_dim, state, valid, None, g, runs,
                               lines, mono)
     return pcm, st.store, st.v_fifo
+
+
+def chain_segments(t_dim: int) -> list[tuple[int, int]]:
+    """(G, L) pairs that cover the chain kernel's segment edges at T: every
+    G with L = 1, 2, 3 and one segment a stream."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    return sorted({(g, min(n, -(-t_dim // g))) for g in K.CHAIN_RUNS
+                   for n in (1, 2, 3, -(-t_dim // g))})
+
+
+# the segment lengths timed at each G (those above T's runs dropped; one
+# segment a stream added)
+CHAIN_SWEEP_L = (1, 2, 3, 4, 5, 6, 8, 10, 12, 15, 20, 30, 60)
+CHAIN_TIMED = ((64, 240), (64, 37), (1, 128), (1, 1))  # (S, T) timed at every (G, L)
+CHAIN_SPREAD = 5  # timings of the wrapper's pick, for its spread
+# streams timed at T = 240 for the wrapper's pick: the bench's lane groups
+# (16 mono, 48 stereo, and 32 and 96, 64 and 192 at 2x and 4x its lanes) and
+# more streams than an H100 has block slots (264)
+CHAIN_PICK_S = (16, 48, 96, 192, 300)
+
+
+def chain_sweep(t_dim: int) -> list[tuple[int, int]]:
+    """Every (G, L) the smoke times at T: each G at CHAIN_SWEEP_L and one
+    segment a stream."""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    out = set()
+    for g in K.CHAIN_RUNS:
+        runs = -(-t_dim // g)
+        out |= {(g, n) for n in CHAIN_SWEEP_L if n <= runs} | {(g, runs)}
+    return sorted(out)
+
+
+def chain_occupancy(dev) -> dict:
+    """The chain kernel's shared memory a block and blocks an SM, by input,
+    G and L (1, or a walk), printed. -> {"<input> G=<g> L<..>": [bytes, blocks]}"""
+    from go_mp3_tpu_torch.ops import kernels as K
+
+    occ = {}
+    for label, layout in (("int8", K._INT8), ("int16", K._INT16),
+                          ("granule_batch", K._BATCH), ("fused", K._FUSED)):
+        for g in K.CHAIN_RUNS:
+            for n in (1, 2):
+                occ[f"{label} G={g} L{'=1' if n == 1 else '>1'}"] = list(
+                    K.chain_occupancy(dev, layout, g, n))
+    say("phase 2 chain shared memory a block (bytes) and blocks an SM "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+        + ", ".join(f"{k} {b} B x{n}" for k, (b, n) in occ.items()))
+    return occ
+
+
+def chain_pick_sweep(dev, p8, state, valid, t_dim: int) -> dict:
+    """At T and each S of CHAIN_PICK_S (the int8 chunk's streams, state and
+    valid counts repeated): the wrapper's (G, L), one run a block, the
+    longest segment whose blocks fit one wave of two an SM, and chain_sweep's
+    segment lengths at the pick's G, each bit-identical to one run a block
+    and timed. -> {"S=<s>": {"pick": [G, L], "ms": {"G=<g> L=<n>": ms}}}"""
+    import torch
+
+    from go_mp3_tpu_torch.ops import kernels as K
+    from go_mp3_tpu_torch.ops.granule import DecodeState
+
+    out = {}
+    for s_dim in CHAIN_PICK_S:
+        rows = torch.arange(s_dim, device=dev) % p8[0].shape[0]
+        ins = tuple(t.index_select(0, rows).contiguous() for t in p8)
+        st = DecodeState(*(t.index_select(0, rows).contiguous() for t in state))
+        v = valid.index_select(0, rows).contiguous()
+        pick = K.chain_run(dev, s_dim, t_dim)
+        g, runs = pick[0], -(-t_dim // pick[0])
+        one_wave = -(-runs // max(1, min(runs, 2 * K._sm_count(dev) // s_dim)))
+        lens = sorted({n for gg, n in chain_sweep(t_dim) if gg == g} | {pick[1], one_wave})
+        want = _chain_launch("int8", ins, s_dim, t_dim, st, v, g, 1, 0, False)
+        ms = {}
+        for n in lens:
+            def run(n=n):
+                return _chain_launch("int8", ins, s_dim, t_dim, st, v, g, n, 0, False)
+            check(all(torch.equal(a, b) for a, b in zip(run(), want)),
+                  f"phase 2 chain pick S={s_dim} T={t_dim} G={g} L={n}: differs from L=1")
+            ms[f"G={g} L={n}"] = time_ms(run)
+        out[f"S={s_dim}"] = {"pick": list(pick), "one_wave_L": one_wave, "ms": ms}
+        say(f"phase 2 time chain pick [int8] (S={s_dim} T={t_dim}, the S=64 chunk's streams "
+            f"repeated; card time, ms; every L bit-identical to L=1): the wrapper's (G, L)="
+            f"{pick} {ms[f'G={g} L={pick[1]}']:.4f}, L=1 {ms[f'G={g} L=1']:.4f}, the longest "
+            f"one-wave segment L={one_wave} ({s_dim * -(-runs // one_wave)} blocks) "
+            f"{ms[f'G={g} L={one_wave}']:.4f}; "
+            + "; ".join(f"{k} {t:.4f}" for k, t in ms.items()))
+    return out
 
 
 def phase_chain(dev) -> dict:
     """The chain kernel (K5) on each of K1's four inputs (CHAIN_CASES:
     [64, 240], [64, 37], the Decoder's [1, 128], [1, 1] and a mono wire [5,
     37]; valid 0, T, 13-15 and ragged): bit for bit against K1 -> K2 -> K3
-    at every run length the kernel takes, the wrapper's included, and
-    within bounds of its plain version (decode_chunk_ref). Timed at [64,
-    240] and [1, 128] on each input, at every run length on the int8
-    input, beside K1 + K2 + K3 (and K2 and K3 alone at [1, 128]). -> its
-    row of the kernels line."""
+    at the wrapper's (G, L) and at every G with L = 1, 2, 3 and one segment
+    a stream (chain_segments), and within bounds of its plain version
+    (decode_chunk_ref). At CHAIN_TIMED, every (G, L) of chain_sweep on the
+    int8 input is held bit for bit against K1 -> K2 -> K3 and the
+    wrapper's pick, and timed; each input at the pick beside K1 + K2 + K3
+    (and K2 and K3 alone at [1, 128]); the pick at [64, 240] and [1, 128]
+    CHAIN_SPREAD times; then chain_pick_sweep. -> its row of the kernels
+    line."""
     import torch
 
     from go_mp3_tpu_torch.ops import granule as G
     from go_mp3_tpu_torch.ops import kernels as K
     from go_mp3_tpu_torch.ops.granule import state_from_numpy
 
-    row, worst = {}, [0.0, 0, 0.0]
-    for i, (s_dim, t_dim, lines, mono, valids) in enumerate(CHAIN_CASES):
+    row, worst = {"occupancy": chain_occupancy(dev)}, [0.0, 0, 0.0]
+    cases = list(CHAIN_CASES) + [(s, t, 512, False, ([t],)) for s, t in CHAIN_TIMED
+                                 if not any(c[:2] == (s, t) for c in CHAIN_CASES)]
+    for i, (s_dim, t_dim, lines, mono, valids) in enumerate(cases):
         seed = SEED + 60 + i
         rng = np.random.default_rng(seed)
         inputs = k1_inputs(seed, s_dim, t_dim, lines, mono, dev)
@@ -564,6 +687,7 @@ def phase_chain(dev) -> dict:
             v[2:2 + len(MID_RUN_VALID)] = np.minimum(MID_RUN_VALID, t_dim)
             valids = (v,)
         plain_batch = k1_batch(inputs["fused"], t_dim, lines, mono)
+        pick = K.chain_run(dev, s_dim, t_dim)
         for v in valids:
             valid = torch.tensor(v, dtype=torch.int32, device=dev)
             what = f"phase 2 chain S={s_dim} T={t_dim} mono={mono} valid={list(v)[:5]}"
@@ -571,12 +695,14 @@ def phase_chain(dev) -> dict:
                 want = k123(packed, t_dim, state, valid, lines, mono)
                 pcm, st = K.chain(packed, state, valid, **(
                     {"t": t_dim, "tail_lines": lines, "mono": mono} if label == "fused" else {}))
-                got = [(pcm, st.store, st.v_fifo)] + [
-                    _chain_launch(label, packed, s_dim, t_dim, state, valid, g, lines, mono)
-                    for g in K.CHAIN_RUNS]
-                for g, out in zip(("wrapper",) + K.CHAIN_RUNS, got):
+                check(all(torch.equal(a, b) for a, b in zip((pcm, st.store, st.v_fifo), want)),
+                      f"{what} [{label}]: the wrapper's chain {pick} differs from "
+                      f"K1 -> K2 -> K3")
+                for g, n in chain_segments(t_dim):
+                    out = _chain_launch(label, packed, s_dim, t_dim, state, valid, g, n,
+                                        lines, mono)
                     check(all(torch.equal(a, b) for a, b in zip(out, want)),
-                          f"{what} [{label}]: the chain with G={g} differs from "
+                          f"{what} [{label}]: the chain with G={g} L={n} differs from "
                           f"K1 -> K2 -> K3")
             ref_pcm, ref_st = G.decode_chunk_ref(plain_batch, state, valid)
             d = (pcm.int() - ref_pcm.int()).double()
@@ -588,31 +714,51 @@ def phase_chain(dev) -> dict:
                   f"{e_st:.3e}")
             worst = [max(worst[0], rms), max(worst[1], mx), max(worst[2], e_st)]
         say(f"phase 2 chain S={s_dim} T={t_dim} L={lines} mono={mono}, valid "
-            f"{'0, T, 13-15 and ragged' if len(valids) == 1 else [int(v[0]) for v in valids]}: "
-            f"{', '.join(inputs)} bit-identical to K1 -> K2 -> K3 at the wrapper's G="
-            f"{K.chain_run(dev, s_dim, t_dim)} and every G of {K.CHAIN_RUNS}")
-        if (s_dim, t_dim) not in ((64, 240), (1, 128)):
+            f"{'0, T, 13-15 and ragged' if len(valids) == 1 and len(valids[0]) > 1 else [int(v[0]) for v in valids]}: "
+            f"{', '.join(inputs)} bit-identical to K1 -> K2 -> K3 at the wrapper's (G, L) = "
+            f"{pick} and at (G, L) = {chain_segments(t_dim)}")
+        if (s_dim, t_dim) not in CHAIN_TIMED:
             continue
         shape = f"S={s_dim} T={t_dim}"
-        # ragged counts at [64, 240]; every granule at the Decoder's [1, 128]
-        valid = torch.tensor(valids[0] if len(valids) == 1 else [t_dim],
-                             dtype=torch.int32, device=dev)
-        pick = K.chain_run(dev, s_dim, t_dim)
+        # the first valid vector: ragged at S = 64; every granule at S = 1
+        valid = torch.tensor(valids[0] if s_dim > 1 else [t_dim], dtype=torch.int32,
+                             device=dev)
         out = nbytes(pcm, valid) + 2 * nbytes(state.store, state.v_fifo)
         flops = chain_flops(s_dim, t_dim)
+        p8 = inputs["int8"]
+        want = k123(p8, t_dim, state, valid, lines, mono)
+        sweep = {}
+        for g, n in chain_sweep(t_dim):
+            def run(g=g, n=n):
+                return _chain_launch("int8", p8, s_dim, t_dim, state, valid, g, n, lines, mono)
+            check(all(torch.equal(a, b) for a, b in zip(run(), want)),
+                  f"phase 2 chain sweep {shape} G={g} L={n}: differs from "
+                  f"K1 -> K2 -> K3 (and the wrapper's pick)")
+            sweep[(g, n)] = time_ms(run)
+        say(f"phase 2 time chain sweep [int8] ({shape}; card time, ms; the wrapper's "
+            f"(G, L)={pick}; every (G, L) bit-identical to K1 -> K2 -> K3): "
+            + "; ".join(f"G={g} L={n} {t:.4f}" for (g, n), t in sweep.items())
+            + f"; fastest {min((t, g, n) for (g, n), t in sweep.items())}")
         for label, packed in inputs.items():
             ins = packed if isinstance(packed, tuple) else (packed,)
-            runs = {g: time_ms(lambda packed=packed, g=g: _chain_launch(
-                label, packed, s_dim, t_dim, state, valid, g, lines, mono))
-                for g in (K.CHAIN_RUNS if label == "int8" else (pick,))}
+            ms = time_ms(lambda packed=packed: _chain_launch(
+                label, packed, s_dim, t_dim, state, valid, *pick, lines, mono))
             k3_ms = time_ms(lambda packed=packed: k123(packed, t_dim, state, valid, lines, mono))
             row.setdefault("routes", {}).setdefault(label, {})[shape] = {
-                "ms": runs[pick], "run": pick, "runs_ms": runs, "k1_k2_k3_ms": k3_ms,
+                "ms": ms, "run": list(pick), "k1_k2_k3_ms": k3_ms,
                 **bound(nbytes(*ins) + out, flops)}
             say(f"phase 2 time chain [{label}] ({shape}; card time, ms; the wrapper's "
-                f"G={pick}): " + ", ".join(f"G={g} {t:.4f}" for g, t in runs.items())
-                + f"; K1 -> K2 -> K3 {k3_ms:.4f}")
-        if s_dim == 1:
+                f"(G, L)={pick}): {ms:.4f}; K1 -> K2 -> K3 {k3_ms:.4f}")
+        entry = row["routes"]["int8"][shape]
+        entry["sweep_ms"] = {f"G={g} L={n}": t for (g, n), t in sweep.items()}
+        if (s_dim, t_dim) in ((64, 240), (1, 128)):
+            reps = [time_ms(lambda: _chain_launch("int8", p8, s_dim, t_dim, state, valid,
+                                                  *pick, lines, mono))
+                    for _ in range(CHAIN_SPREAD)]
+            entry["spread_ms"] = [min(reps), max(reps)]
+            say(f"phase 2 time chain [int8] ({shape}; the wrapper's (G, L)={pick}) "
+                f"{CHAIN_SPREAD} timings: {', '.join(f'{t:.4f}' for t in reps)} ms")
+        if s_dim == 1 and t_dim == 128:
             x, ginfo = K.requant_stereo(inputs["int16"])
             x18, _ = K.hybrid(x, ginfo, state.store, valid)
             row["k2_k3_ms"] = {shape: {
@@ -620,15 +766,16 @@ def phase_chain(dev) -> dict:
                 "synth": time_ms(lambda: K.synth(x18, ginfo, state.v_fifo, valid))}}
             say(f"phase 2 time K2, K3 alone ({shape}; card time, ms): "
                 f"{row['k2_k3_ms'][shape]}")
-        if s_dim == 64:
+        if (s_dim, t_dim) == (64, 240):
             row["plain_ms"] = time_ms(lambda: G.decode_chunk_ref(plain_batch, state, valid))
+            row["pick_sweep"] = chain_pick_sweep(dev, p8, state, valid, t_dim)
     say(f"phase 2 chain against plain (decode_chunk_ref): worst PCM RMS {worst[0]:.4f} "
         f"(< {CHAIN_PCM_RMS}), max {worst[1]} (<= {CHAIN_PCM_MAX}), state "
         f"{worst[2]:.3e} (<= {CHAIN_STATE_REL})")
     routes = row.pop("routes")
     int8 = routes.pop("int8")
-    row.update(max_abs_err=float(worst[1]), **int8["S=64 T=240"],
-               shapes={"S=1 T=128": int8["S=1 T=128"]}, routes=routes)
+    row.update(max_abs_err=float(worst[1]), **int8.pop("S=64 T=240"), shapes=int8,
+               routes=routes)
     return row
 
 
@@ -760,15 +907,16 @@ def phase_empty_chunk(dev) -> None:
     for label, packed in (("int8", p8), ("int16", p16), ("granule_batch", batch),
                           ("fused", wire)):
         for g in K.CHAIN_RUNS:
-            pcm, store, fifo = _chain_launch(label, packed, s_dim, 0, state, valid, g,
-                                             lines, False)
-            check(pcm.shape == (s_dim, 0, 2) and torch.equal(store, state.store)
-                  and torch.equal(fifo, state.v_fifo), f"T=0 chain [{label}] G={g}")
+            for n in (1, 3):
+                pcm, store, fifo = _chain_launch(label, packed, s_dim, 0, state, valid, g, n,
+                                                 lines, False)
+                check(pcm.shape == (s_dim, 0, 2) and torch.equal(store, state.store)
+                      and torch.equal(fifo, state.v_fifo), f"T=0 chain [{label}] G={g} L={n}")
     counts = K.all_counts()
     check(not any(counts.values()), f"T=0: a kernel was launched ({counts})")
     say(f"phase 2 tiles S={s_dim} T=0: K1 (4 inputs x tiles {K.K1_TILES}), K2 (runs "
         f"{K2_RUNS}), K3 (runs {K3_RUNS}), K4 (stereo and mono), the chain (4 inputs "
-        f"x runs {K.CHAIN_RUNS}), decode_chunk (3 inputs) and decode_chunk_fused "
+        f"x runs {K.CHAIN_RUNS} x L = 1, 3), decode_chunk (3 inputs) and decode_chunk_fused "
         f"(stereo and mono): empty outputs, no launch, the state returned equal to "
         f"the state given")
 
@@ -1147,6 +1295,7 @@ def phase_decoder(dev, times: int = 300) -> tuple[bytes, bytes, bytes]:
         f"({secs / wall:.1f}x realtime, one stream); vs exact RMS {rms:.4f} "
         f"max {mx}; seek_to_time({seek_to}) + 5 s read RMS {srms:.4f} max "
         f"{smx}; checkpoint/resume round-trips; PCM sha256 {sha256(pcm)}")
+    check_parent("phase 4 PCM sha256", sha256(pcm))
     return data, pcm, exact
 
 
@@ -1338,6 +1487,7 @@ def phase_corpus(dev, lanes: list[bytes]) -> dict:
         f"{len(runs)} runs byte-identical; every lane ISO full vs exact "
         f"(worst RMS {worst[0]:.4f}, max {worst[1]}); PCM sha256 (the lanes "
         f"joined in order) {sha256(b''.join(base))}")
+    check_parent("phase 5 PCM sha256", sha256(b''.join(base)))
 
     for label, kw, res, _, wall, peak, counts in runs:
         ph = res.phase_seconds
@@ -1747,6 +1897,8 @@ def phase_bench(dev, lanes: list[bytes], corpus_pcm: list[bytes]) -> dict:
               f"phase 9 bench: chunk {c} lane {s}: energy {run.energies[c, s]}, phase 5's "
               f"PCM gives {want}")
         pairs += 1
+    check_parent("phase 9 energies sha256", sha256(np.ascontiguousarray(
+        run.energies, np.int32).tobytes()))
     check(pairs > 0 and counts["chain"] > 0 and counts["chain_fused"] == counts["chain"]
           and counts["energy"] > 0
           and not any(counts[n] for n in STAGE_KERNELS) and not counts["segment_graph"],

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "barrier.cuh"
 #include "fused_tile.cuh"
 
 namespace {
@@ -138,14 +139,22 @@ struct RequantSmem {
 // channels -> x_out[(j * 2 + c) * 576 + line] and ginfo_out[j] for granule
 // t0 + j (global or shared memory). On the wire the tail is staged from
 // granule tail_t0 (t0 - kStaged + G <= tail_t0 <= t0; a multiple of 4 keeps
-// its loads 4 bytes wide). Three steps, a barrier after A and after B; the
-// caller syncs before it reads the outputs.
-template <int kLayout, int G, int kThreads, int kSpan, int kStaged = G>
+// its loads 4 bytes wide). Three steps, a barrier after A and after B
+// (`sync`: the block's, or a named barrier over the kThreads threads that
+// run the tile); B writes ginfo_out, C x_out, and `before_c`, called by
+// every thread after B's barrier, may wait until x_out is free. The caller
+// syncs before it reads the outputs.
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+template <int kLayout, int G, int kThreads, int kSpan, int kStaged = G,
+          class Sync = gomp3::BlockSync, class BeforeC = NoWait>
 __device__ __forceinline__ void requant_tile(const Inputs& in, const gomp3::Wire& w, int s,
                                              int t0, int nv, size_t g0, int stereo,
                                              size_t granules, float* __restrict__ x_out,
                                              int32_t* __restrict__ ginfo_out, int tail_t0,
-                                             RequantSmem<kLayout, G, kStaged>& sm, int tid) {
+                                             RequantSmem<kLayout, G, kStaged>& sm, int tid,
+                                             Sync sync = {}, BeforeC before_c = {}) {
   constexpr int kPer = kLines / kSpan;  // items of a granule
   constexpr int kItems = (G * kPer + kThreads - 1) / kThreads;  // items of a thread
   auto& side = sm.side;
@@ -227,7 +236,7 @@ __device__ __forceinline__ void requant_tile(const Inputs& in, const gomp3::Wire
   }
   if (kLayout == kFused)
     gomp3::stage_tail<kStaged, kThreads>(w, s, tail_t0, sm.stail, tid, t0 - tail_t0 + nv);
-  __syncthreads();
+  sync();
 
   // each item's band indices (L1-resident maps), loaded here so that they
   // arrive while B runs
@@ -286,7 +295,8 @@ __device__ __forceinline__ void requant_tile(const Inputs& in, const gomp3::Wire
                      (sd[13] & 3) << 6 | (mono ? 1 << 8 : 0);
     }
   }
-  __syncthreads();
+  sync();
+  before_c();
 
   // -- C: kSpan lines x 2 channels an item ------------------------------------
 #pragma unroll

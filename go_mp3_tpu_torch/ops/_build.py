@@ -115,7 +115,8 @@ SIGNATURES = {  # C entry point -> argtypes; every one returns a CUDA error code
     "gomp3_synth": [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gomp3_unpack_fused": [_i, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "gomp3_chain_init": [_i] + [_p] * 15,
-    "gomp3_chain": [_i, _i, _pp, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "gomp3_chain": [_i, _i, _pp, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p],
+    "gomp3_chain_occupancy": [_i, _i, _i, _i, _p, _p],
     "gomp3_energy": [_i, _p, _p, _i, ctypes.c_longlong, _p],
 }
 

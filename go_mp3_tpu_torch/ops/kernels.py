@@ -17,7 +17,8 @@ in `<wrapper>.launches`, a plain integer that only a kernel launch moves.
                                               (fused; v stays on chip)
   unpack_fused    K4  csrc/unpack_fused.cu    fused wire -> K1's int8 arrays
   chain           K5  csrc/chain.cu           K1 -> K2 -> K3 in one kernel,
-                                              x and x18 kept on chip
+                                              x and x18 kept on chip, a
+                                              block per segment of runs
   energy              csrc/energy.cu          per stream, the wrapping int32
                                               sum of |PCM| (the bench's fence)
 
@@ -378,14 +379,51 @@ def unpack_fused(buf: torch.Tensor, t: int, tail_lines: int, mono: bool = False)
 
 # granules a run: every run the chain kernel takes (csrc/chain.cu)
 CHAIN_RUNS = (1, 2, 4)
+# the shortest segment the chain kernel walks: below it, the segment's halo
+# and its first K1, which nothing overlaps, cost more than a block per run
+# (L = 1) does (every (G, L) at [64, 240] and [64, 37] on an H100, PERF.md)
+MIN_SEGMENT_RUNS = 5
+# the least share of its waves' block slots (two an SM) that a walk's blocks
+# must fill: a wave's idle slots cost more than the walk gains on one run a
+# block (every L at T = 240 and S = 16 .. 300 on an H100, PERF.md)
+CHAIN_WAVE_FILL = 0.95
 
 
-def chain_run(dev: torch.device, s_dim: int, t_dim: int) -> int:
-    """K5's granules a block: the longest run, up to 4, that still gives
-    two blocks per SM (each block recomputes two granules before its run,
-    so longer runs waste less; 4 was the fastest at 64 x 240 on an H100,
-    1 at the Decoder's 1 x 128). No output depends on it."""
-    return run_length(s_dim, t_dim, 2 * _sm_count(dev), CHAIN_RUNS[-1])
+def chain_run(dev: torch.device, s_dim: int, t_dim: int) -> tuple[int, int]:
+    """K5's (G, L): a block walks L runs of G granules of one stream. G is
+    the longest run, up to 4, at which the chunk still splits into two
+    runs per SM. L is the longest segment of at least MIN_SEGMENT_RUNS runs
+    whose blocks (S x segments) fill the waves they take, two blocks an SM,
+    to CHAIN_WAVE_FILL or more; else 1, the one-run-a-block kernel. On an
+    H100 (2 x 132 slots) at T = 240: S = 64 -> (4, 15), 256 blocks in one
+    wave; 96 -> (4, 8), 768 in three; 192 -> (4, 15), 768; 300 -> (4, 10),
+    1,800 in seven; 16 and 48 -> (4, 1), as [64, 37] and the Decoder's
+    [1, 128]. A segment recomputes two granules at its start, where a
+    block of one run does so before every run. No output depends on
+    either."""
+    slots = 2 * _sm_count(dev)
+    g = run_length(s_dim, t_dim, slots, CHAIN_RUNS[-1])
+    runs = -(-t_dim // g)
+    for segments in range(1, runs + 1):
+        n = -(-runs // segments)
+        if n < MIN_SEGMENT_RUNS:
+            break
+        blocks = s_dim * -(-runs // n)
+        if blocks >= CHAIN_WAVE_FILL * slots * max(1, -(-blocks // slots)):
+            return g, n
+    return g, 1
+
+
+def chain_occupancy(dev: torch.device, layout: int, g: int, runs: int) -> tuple[int, int]:
+    """The chain kernel's dynamic shared memory a block (bytes) and blocks
+    an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for K1's input
+    `layout` (_INT16, _INT8, _BATCH, _FUSED), G and L (1: the
+    one-run-a-block kernel; any other: the segment walk)."""
+    lib, idx = _library(dev)
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    _check_rc("chain_occupancy", lib.gomp3_chain_occupancy(
+        idx, layout, g, runs, ctypes.byref(smem), ctypes.byref(blocks)))
+    return smem.value, blocks.value
 
 
 def chain(packed, state: G.DecodeState, valid: torch.Tensor,
@@ -398,8 +436,9 @@ def chain(packed, state: G.DecodeState, valid: torch.Tensor,
     it). state: store f32 [S,2,32,18] and v_fifo f32 [S,2,16,64]; valid
     int32 [S] (0 <= valid <= T) -> (pcm int16 [S, T*576, 2], the state after
     each stream's valid granules; a copy of it when T == 0). `out`, if
-    given, receives the PCM. One block per (stream, run of chain_run
-    granules). On CPU tensors: the plain chain (decode_chunk_ref).
+    given, receives the PCM. One block per stream and segment of
+    chain_run's L runs of G granules. On CPU tensors: the plain chain
+    (decode_chunk_ref).
     `chain.int16_launches`, `.batch_launches` and `.fused_launches` count
     the launches of those K1 routes among `chain.launches`."""
     layout, tensors, s_dim, t_dim = _k1_any(packed, t, tail_lines, mono)
@@ -415,15 +454,16 @@ def chain(packed, state: G.DecodeState, valid: torch.Tensor,
         pcm, st = G.decode_chunk_ref(b, state, valid)
         return (pcm if out is None else out.copy_(pcm)), st
     return _chain_launch(layout, tensors, s_dim, t_dim, state, valid, out,
-                         chain_run(dev, s_dim, t_dim), tail_lines, mono)
+                         *chain_run(dev, s_dim, t_dim), tail_lines, mono)
 
 
 def _chain_launch(layout, tensors, s_dim, t_dim, state: G.DecodeState, valid, out,
-                  g: int, tail_lines: int = 0, mono: bool = False):
+                  g: int, runs: int, tail_lines: int = 0, mono: bool = False):
     """K5's launch on checked CUDA tensors (K1's inputs of `layout` in
-    csrc/requant_stereo.cu's order), `g` granules a block (one of
-    CHAIN_RUNS; no output depends on it). T == 0 launches nothing: the C
-    entry point copies the state."""
+    csrc/requant_stereo.cu's order): a block per stream and segment of
+    `runs` (L >= 1) runs of `g` granules (one of CHAIN_RUNS); no output
+    depends on either. T == 0 launches nothing: the C entry point copies
+    the state."""
     dev = tensors[0].device
     _check_k1_alignment(layout, tensors)
     pcm = out if out is not None else torch.empty(
@@ -436,7 +476,7 @@ def _chain_launch(layout, tensors, s_dim, t_dim, state: G.DecodeState, valid, ou
     _check_rc("chain", lib.gomp3_chain(
         idx, layout, ptrs, state.store.data_ptr(), state.v_fifo.data_ptr(),
         valid.data_ptr(), pcm.data_ptr(), store.data_ptr(), fifo.data_ptr(),
-        s_dim, t_dim, g, tail_lines, 1 if mono else 2,
+        s_dim, t_dim, g, runs, tail_lines, 1 if mono else 2,
         torch.cuda.current_stream(dev).cuda_stream,
     ))
     if s_dim and t_dim:

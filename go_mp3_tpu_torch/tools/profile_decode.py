@@ -63,7 +63,7 @@ TRACES = Path(__file__).resolve().parents[2] / "build" / "traces"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device activity in a trace
 HOST_CATS = ("cpu_op", "user_annotation", "python_function", "cuda_runtime",
              "cuda_driver")
-CHAIN_KERNEL = "chain_kernel"  # csrc/chain.cu's __global__ function
+CHAIN_KERNEL = "chain_kernel"  # in the name of each of csrc/chain.cu's __global__ functions
 WINDOW = "profile_decode window"  # the record_function around a window
 
 

@@ -4,8 +4,9 @@
 // sources against it with g++). Not a model of the card's timing or of its
 // float rounding in exp2f/log2f.
 //
-// One std::thread per CUDA thread, a std::barrier per block and per warp,
-// blocks one after another. Static __shared__ arrays become function-local
+// One std::thread per CUDA thread, a std::barrier per block and per warp
+// and one per named barrier id (csrc/barrier.cuh), blocks one after
+// another. Static __shared__ arrays become function-local
 // statics (blocks never overlap); dynamic shared memory starts as NaN, so a
 // read of a value never written shows in the output.
 #pragma once
@@ -15,8 +16,12 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <cstdio>
+#include <cstdlib>
 #include <functional>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -28,6 +33,7 @@
 #define __shared__ static
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
+#define GOMP3_CUDA_EMU 1  // csrc/barrier.cuh: named barriers below
 
 struct uint3_ {
   unsigned x, y, z;
@@ -37,6 +43,37 @@ inline uint3_ blockDim;
 inline thread_local float* emu_dyn_smem;
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+// named barriers (bar.sync / bar.arrive): id -> its thread count, its
+// arrivals and its barrier, made at first use in a block. A use with
+// another count, or a block that ends with a phase open, aborts: the card
+// takes one count per id and phase, and leaves an open phase undefined.
+struct EmuNamed {
+  int n = 0;
+  long arrivals = 0;
+  std::unique_ptr<std::barrier<>> bar;
+};
+inline std::mutex emu_named_mutex;
+inline std::map<int, EmuNamed> emu_named;
+inline std::barrier<>& emu_named_barrier(int id, int n) {
+  std::lock_guard<std::mutex> lock(emu_named_mutex);
+  EmuNamed& b = emu_named[id];
+  if (!b.bar) b.n = n, b.bar = std::make_unique<std::barrier<>>(n);
+  if (id <= 0 || id > 15 || n % 32 || b.n != n) {
+    std::fprintf(stderr, "named barrier %d used with %d threads (first %d)\n", id, n, b.n);
+    std::abort();
+  }
+  b.arrivals++;
+  return *b.bar;
+}
+inline void emu_named_check_closed() {
+  for (auto& [id, b] : emu_named) {
+    if (b.arrivals % b.n) {
+      std::fprintf(stderr, "named barrier %d: a block ended with %ld of %d arrivals\n", id,
+                   b.arrivals % b.n, b.n);
+      std::abort();
+    }
+  }
+}
 
 struct dim3 {
   unsigned x, y, z;
@@ -92,6 +129,11 @@ inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n, int, cudaSt
 }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;  // blocks run one after another here
+  return 0;
+}
 
 // kernel<<<grid, block, smem, stream>>>(args) becomes (emulate.py rewrites
 // it) emu_launch(dim3(grid), dim3(block), smem, [=] { kernel(args); }).
@@ -107,6 +149,7 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()>
       for (unsigned w = 0; w < (n + 31) / 32; w++)
         emu_warp_barriers.emplace_back(new std::barrier<>(std::min(32u, n - 32 * w)));
       std::fill(dyn.begin(), dyn.end(), NAN);
+      emu_named.clear();
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < n; t++)
         ts.emplace_back([&, t] {
@@ -116,6 +159,7 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()>
           body();
         });
       for (auto& t : ts) t.join();
+      emu_named_check_closed();
     }
   }
 }

@@ -2,28 +2,32 @@
 change before a GPU run.
 
     python tests/cuda_emu/emulate.py [--kernels chain,energy] [--inputs int8,fused]
-                                     [--mutate FILE OLD NEW] [--build-dir DIR]
+                                     [--quick] [--mutate FILE OLD NEW] [--build-dir DIR]
 
 Builds go_mp3_tpu_torch/csrc/*.cu with g++ against cuda_runtime.h beside
-this file (one OS thread per CUDA thread, real barriers, dynamic shared
-memory filled with NaN) into build/cuda_emu/, points the kernel wrappers'
-CUDA route at that library for CPU tensors, and holds the chain kernel (K5)
-bit for bit against K1 -> K2 -> K3 through their own wrappers on small
-seeded chunks (stereo and mono, valid 0, T and ragged), on each of K1's
-four inputs and at every run length; K1 -> K2 -> K3 is also measured
-against the plain chain. It holds the energy kernel (energy.cu) bit for bit
-against its plain version energy_ref on seeded PCM (-32768 included, a row
-whose sum wraps past 2^31, rows of one word and of none). --kernels energy
-builds energy.cu alone (seconds) and checks only it. Exit status 1 on any
+this file (one OS thread per CUDA thread, real barriers, named barriers
+included, dynamic shared memory filled with NaN) into build/cuda_emu/,
+points the kernel wrappers' CUDA route at that library for CPU tensors,
+and holds the chain kernel (K5) bit for bit against K1 -> K2 -> K3
+through their own wrappers on small seeded chunks (stereo and mono, valid
+0, T and ragged), on each of K1's four inputs, at every G with segments of
+L = 1, 2, 3 runs and one segment a stream (so across segment edges); K1 ->
+K2 -> K3 is also measured against the plain chain. --quick checks the first chunk only, at
+G = 2. It holds the energy kernel (energy.cu) bit for bit against its
+plain version energy_ref on seeded PCM (-32768 included, a row whose sum
+wraps past 2^31, rows of one word and of none). --kernels energy builds
+energy.cu alone (seconds) and checks only it. Exit status 1 on any
 difference.
 
-It checks indexing, halos, barriers and the order of operations, not
-speed, and not the card's bits: exp2f/log2f are the C library's.
---mutate replaces the text OLD by NEW in one source before the build, for
-a negative control: a halo of one granule must differ
-(--mutate chain.cu "kHalo = 2;" "kHalo = 1;"), and so must an energy that
-drops the last word of each row (--mutate energy.cu "i < words ?"
-"i < words - 1 ?").
+It checks indexing, halos, barriers (a named barrier used with two
+counts, or left with a phase open at a block's end, aborts) and the
+order of operations, not speed, and not the card's bits: exp2f/log2f are
+the C library's. --mutate replaces the text OLD by NEW in one source
+before the build, for a negative control: a halo of one granule must
+differ (--mutate chain.cu "kHalo = 2;" "kHalo = 1;"), and so must a
+segment whose runs do not hand on their upper halves or their v rows
+(tests/test_torch_chain.py EMU_MUTANTS), and an energy that drops the last
+word of each row (--mutate energy.cu "i < words ?" "i < words - 1 ?").
 """
 
 from __future__ import annotations
@@ -103,12 +107,21 @@ def build(mutate=None, out: Path = OUT, sources=None) -> Path:
     return lib
 
 
-def check_chain(labels) -> tuple[int, int]:
-    """The chain against K1 -> K2 -> K3 on CASES -> (differences, checks)."""
+def segments(t_dim: int, quick: bool = False) -> list[tuple[int, int]]:
+    """(G, L) of every chain launch on one chunk: chip_smoke's segment cover
+    (every G at L = 1, 2, 3 and one segment a stream); quick: G = 2 only."""
+    import chip_smoke as cs
+
+    return [(g, n) for g, n in cs.chain_segments(t_dim) if not quick or g == 2]
+
+
+def check_chain(labels, quick: bool = False) -> tuple[int, int]:
+    """The chain against K1 -> K2 -> K3 on CASES (quick: the first, at
+    G = 2) -> (differences, checks)."""
     import chip_smoke as cs
 
     dev, diffs, checks = torch.device("cpu"), 0, 0
-    for i, (s_dim, t_dim, lines, mono, valids) in enumerate(CASES):
+    for i, (s_dim, t_dim, lines, mono, valids) in enumerate(CASES[:1] if quick else CASES):
         rng = np.random.default_rng(5 + i)
         inputs = cs.k1_inputs(5 + i, s_dim, t_dim, lines, mono, dev)
         state = G.state_from_numpy(
@@ -120,16 +133,17 @@ def check_chain(labels) -> tuple[int, int]:
             for label in labels:
                 packed = inputs[label]
                 want = cs.k123(packed, t_dim, state, valid, lines, mono)
-                for g in K.CHAIN_RUNS:
-                    got = cs._chain_launch(label, packed, s_dim, t_dim, state, valid, g, lines,
-                                           mono)
+                for g, runs in segments(t_dim, quick):
+                    got = cs._chain_launch(label, packed, s_dim, t_dim, state, valid, g, runs,
+                                           lines, mono)
                     bad = [n for n, a, b in zip(("pcm", "store", "fifo"), got, want)
                            if not torch.equal(a, b)]
                     checks += 1
                     diffs += bool(bad)
                     if bad:
-                        print(f"S={s_dim} T={t_dim} mono={mono} valid={v} [{label}] G={g}: "
-                              f"{', '.join(bad)} differ from K1 -> K2 -> K3", flush=True)
+                        print(f"S={s_dim} T={t_dim} mono={mono} valid={v} [{label}] G={g} "
+                              f"L={runs}: {', '.join(bad)} differ from "
+                              f"K1 -> K2 -> K3", flush=True)
             ref_pcm, ref_st = G.decode_chunk_ref(batch, state, valid)
             d = int((want[0].int() - ref_pcm.int()).abs().max())
             print(f"S={s_dim} T={t_dim} mono={mono} valid={v}: K1 -> K2 -> K3 against the "
@@ -175,6 +189,8 @@ def main(argv=None) -> int:
                     help="kernels to check, comma-separated: chain, energy")
     ap.add_argument("--inputs", default="int8,int16,granule_batch,fused",
                     help="K1's inputs to check the chain on, comma-separated")
+    ap.add_argument("--quick", action="store_true",
+                    help="the chain on the first case only, at G = 2 (L = 1, 2, 3, 5)")
     ap.add_argument("--mutate", nargs=3, metavar=("FILE", "OLD", "NEW"))
     ap.add_argument("--build-dir", type=Path, default=OUT)
     args = ap.parse_args(argv)
@@ -194,7 +210,7 @@ def main(argv=None) -> int:
 
     diffs = 0
     if chain:
-        diffs += check_chain(args.inputs.split(","))[0]
+        diffs += check_chain(args.inputs.split(","), args.quick)[0]
     if "energy" in kernels:
         diffs += check_energy()[0]
     return 1 if diffs else 0

@@ -17,7 +17,23 @@ launch) on the CPU, against go_mp3_tpu.
   chunk (granules t0 .. t1-1 of a block recomputed from t0-2, with the
   incoming state only where a block's slice starts at 0), equals the
   whole chunk bit for bit; a halo of one granule does not.
+- Segments: the plain chain walked as the kernel walks a chunk, a block
+  per segment of L runs of G granules (the halo decoded once before the
+  segment, then each run from the state the run before it handed on),
+  equals the whole chunk bit for bit at every G and at L = 1, 2, 3 and one
+  segment a stream; a hand-off that drops the store or the v rows does
+  not, and differs only at the start of a run inside a segment.
+- The CUDA source itself (csrc/chain.cu) on the CPU emulation of
+  tests/cuda_emu/ (--quick: S = 2, T = 9, G = 2 at L = 1, 2, 3 and 5, the
+  int8 input and the wire): bit for bit against
+  K1 -> K2 -> K3; the mutants that drop the carried upper halves or the
+  carried v rows must differ.
 """
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +49,7 @@ from go_mp3_tpu_torch.ops import granule as P  # noqa: E402
 from go_mp3_tpu_torch.ops import kernels as K  # noqa: E402
 from go_mp3_tpu_torch.ops import wire as W  # noqa: E402
 
+ROOT = Path(__file__).resolve().parents[1]
 FULL_RMS, FULL_MAXDIFF = 0.289, 2  # ISO/IEC 11172-4 full compliance
 STATE_REL = 2e-6  # test_stage_parity.py: IMDCT, relative to the scale
 GAINS = (140, 150)  # about full scale
@@ -222,3 +239,120 @@ def test_halo_of_one_granule_fails(g):
     bad = [t for t in range(rows) if not torch.equal(pcm[:, t * 576:(t + 1) * 576],
                                                      whole[:, t * 576:(t + 1) * 576])]
     assert bad and set(bad) <= set(range(g, rows, g))  # the runs' first granules
+
+
+# -- segments ----------------------------------------------------------------------
+
+
+def _segmentwise(batch: P.GranuleBatch, state: P.DecodeState, valid, g: int, runs: int,
+                 drop: str | None = None):
+    """The plain chain as the kernel walks a chunk: a block per segment of
+    `runs` runs of g granules, T0 .. T1-1, which decodes the two granules
+    before T0 from a zero state (the incoming state where they start at 0),
+    then each run from the state that the run before it handed on. `drop`
+    ("store" or "v_fifo") zeroes that part of each hand-off between two
+    runs of a segment: a wrong hand-off. The state of a stream comes from
+    the run holding granule valid-1 (the first run's when valid is 0)."""
+    s_dim, t_dim = batch.spectra.shape[:2]
+    pcm = torch.empty((s_dim, t_dim * 576, 2), dtype=torch.int16)
+    store, fifo = state.store.clone(), state.v_fifo.clone()
+    zero = P.init_state(s_dim, "cpu")
+
+    def part(a, b):
+        return P.GranuleBatch(*(f[:, a:b] for f in batch))
+
+    def full(n):
+        return torch.full((s_dim,), n, dtype=torch.int32)
+
+    for T0 in range(0, t_dim, g * runs):
+        T1, a = min(T0 + g * runs, t_dim), max(0, T0 - 2)
+        st = state if a == 0 else zero
+        if a < T0:
+            _, st = P.decode_chunk_ref(part(a, T0), st, full(T0 - a))
+        for t0 in range(T0, T1, g):
+            t1 = min(t0 + g, T1)
+            if drop and t0 > T0:
+                st = st._replace(**{drop: torch.zeros_like(getattr(st, drop))})
+            out, st_v = P.decode_chunk_ref(part(t0, t1), st,
+                                           (valid - t0).clamp(0, t1 - t0).to(torch.int32))
+            pcm[:, t0 * 576:t1 * 576] = out
+            mine = (valid > t0) & (valid <= t1) | ((valid == 0) & (t0 == 0))
+            store[mine], fifo[mine] = st_v.store[mine], st_v.v_fifo[mine]
+            _, st = P.decode_chunk_ref(part(t0, t1), st, full(t1 - t0))
+    return pcm, P.DecodeState(store, fifo)
+
+
+@pytest.mark.parametrize("valid_kind", ["0", "13", "T"])
+@pytest.mark.parametrize("g,runs", [(1, 1), (1, 2), (1, 29), (2, 3), (4, 2), (4, 8)])
+def test_segments_with_the_state_handed_on_give_the_whole_chunk(g, runs, valid_kind):
+    """Bit for bit: a segment's runs decoded one after another from the
+    state each hands on, the halo decoded once at the segment's start."""
+    batch, state, valid = _halo_case(valid_kind)
+    whole, st = P.decode_chunk_ref(batch, state, valid)
+    pcm, st_s = _segmentwise(batch, state, valid, g, runs)
+    assert torch.equal(pcm, whole)
+    assert torch.equal(st_s.store, st.store) and torch.equal(st_s.v_fifo, st.v_fifo)
+
+
+@pytest.mark.parametrize("drop", ["store", "v_fifo"])
+def test_a_hand_off_without_store_or_v_rows_fails(drop):
+    """The negative control: a run inside a segment that starts from a zero
+    store (its first granule's overlap, whose v rows the second granule's
+    FIR reads too) or from zero v rows (its first granule's FIR) differs
+    there, and only there."""
+    g, runs = 2, 4
+    batch, state, valid = _halo_case("T")
+    whole, _ = P.decode_chunk_ref(batch, state, valid)
+    pcm, _ = _segmentwise(batch, state, valid, g, runs, drop)
+    rows = whole.shape[1] // 576
+    bad = [t for t in range(rows) if not torch.equal(pcm[:, t * 576:(t + 1) * 576],
+                                                     whole[:, t * 576:(t + 1) * 576])]
+    starts = [t for t in range(0, rows, g) if t % (g * runs)]
+    assert bad and set(bad) <= {t + i for t in starts for i in range(2 if drop == "store" else 1)}
+
+
+@pytest.mark.parametrize("s_dim,t_dim,want", [
+    (64, 240, (4, 15)), (48, 240, (4, 1)), (16, 240, (4, 1)), (96, 240, (4, 8)),
+    (192, 240, (4, 15)), (300, 240, (4, 10)), (128, 240, (4, 30)), (64, 256, (4, 16)),
+    (64, 37, (4, 1)), (1, 128, (1, 1)), (1, 1, (1, 1)), (3, 0, None), (0, 5, None)])
+def test_chain_run_fills_whole_waves(monkeypatch, s_dim, t_dim, want):
+    """The wrapper's (G, L) on a card of 132 SMs: a segment walk's blocks
+    fill the waves they take of the card's 264 block slots (two an SM) to
+    CHAIN_WAVE_FILL or more, with segments of at least MIN_SEGMENT_RUNS
+    runs; else one run a block (L = 1: 16 and 48 streams at T = 240 leave
+    9% or more of their wave idle at every such L; T = 0 included)."""
+    monkeypatch.setattr(K, "_sm_count", lambda dev: 132)
+    g, runs = K.chain_run(None, s_dim, t_dim)
+    assert g in K.CHAIN_RUNS and (runs == 1 or runs >= K.MIN_SEGMENT_RUNS)
+    if want:
+        assert (g, runs) == want
+    if runs > 1:
+        blocks = s_dim * -(-t_dim // (g * runs))
+        assert blocks >= K.CHAIN_WAVE_FILL * 2 * 132 * -(-blocks // (2 * 132)) > 0
+
+
+# the emulated kernel's mutants: the carry is never replaced by a run's last
+# upper halves; a run's last 15 v rows are never carried to the next
+EMU_MUTANTS = {
+    "carry": ("chain.cu", "for (int p = 0; p < 18; p++) dst[p * 32] = src[p * 32];", ";"),
+    "v_rows": ("chain.cu",
+               "m.v[c * vrows * kVStride + r] = m.v[(c * vrows + 18 * n) * kVStride + r];",
+               "(void)c, (void)r;"),
+}
+
+
+@pytest.mark.parametrize("mutate", [None, "carry", "v_rows"])
+def test_chain_cuda_source_on_the_cpu_emulation(mutate, tmp_path):
+    """csrc/chain.cu built with g++ against tests/cuda_emu/cuda_runtime.h
+    and launched through kernels._chain_launch at G = 2, L = 1, 2, 3 and 5
+    (the int8 input and the wire): bit for bit against K1 ->
+    K2 -> K3 (exit 0); each mutant must differ (exit 1)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ for the CUDA emulation")
+    cmd = [sys.executable, str(ROOT / "tests" / "cuda_emu" / "emulate.py"), "--kernels",
+           "chain", "--inputs", "int8,fused", "--quick", "--build-dir", str(tmp_path)]
+    if mutate:
+        cmd += ["--mutate", *EMU_MUTANTS[mutate]]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert p.returncode == (1 if mutate else 0), p.stdout + p.stderr
+    assert ("differ from K1 -> K2 -> K3" in p.stdout) == bool(mutate)
