@@ -31,6 +31,7 @@ from typing import BinaryIO
 import numpy as np
 import torch
 
+from . import spans
 from .bitstream.bits import BitReader
 from .bitstream.frameheader import FrameHeader, read_header
 from .bitstream.parser import FrameReader, ParsedFrame
@@ -85,6 +86,10 @@ class Decoder:
     ):
         """use_native: parse with the C++ host parser. None = auto (on when
         available)."""
+        with spans.span("gomp3.decoder.open"):
+            self._open(reader, backend, readahead_frames, use_native, device)
+
+    def _open(self, reader, backend, readahead_frames, use_native, device) -> None:
         if backend not in ("device", "exact", "golden"):
             raise MP3Error(f"mp3: unknown DSP backend {backend!r}")
         self._device = resolve_device(device) if backend == "device" else None
@@ -205,14 +210,15 @@ class Decoder:
             while c := self.read(1 << 20):
                 chunks.append(c)
             return b"".join(chunks)
-        while len(self._buf) < n:
-            if self._at_end or not self._decode_more():
-                break
-        take = min(n, len(self._buf))
-        out = bytes(self._buf[:take])
-        del self._buf[:take]
-        self._pos += take
-        return out
+        with spans.span("gomp3.decoder.read"):
+            while len(self._buf) < n:
+                if self._at_end or not self._decode_more():
+                    break
+            take = min(n, len(self._buf))
+            out = bytes(self._buf[:take])
+            del self._buf[:take]
+            self._pos += take
+            return out
 
     def read_all(self) -> bytes:
         return self.read(-1)
@@ -228,6 +234,10 @@ class Decoder:
         aligned; seek to multiples of 4 to stay on sample boundaries."""
         if offset == 0 and whence == io.SEEK_CUR:
             return self._pos
+        with spans.span("gomp3.decoder.seek"):
+            return self._seek(offset, whence)
+
+    def _seek(self, offset: int, whence: int) -> int:
         if self._length == INVALID_LENGTH:
             raise NotSeekableError()
         if whence == io.SEEK_SET:
@@ -253,6 +263,7 @@ class Decoder:
 
         f = self._pos // self._bytes_per_frame
         k = self._warmup_depth(f)
+        spans.count("gomp3.decoder.warmup_frames", k)
         self._restart_at(self._frame_starts[f - k])
         if not self._decode_n_frames(k + 1):
             return npos
@@ -504,19 +515,26 @@ class _NativeStream:
 
         # the packed int16 interface; rows past n stay zero and `valid`
         # masks them
-        spectra = np.zeros((self.CHUNK, 1152), np.int16)
-        side = np.zeros((self.CHUNK, SIDE_WIDTH), np.int16)
-        n = self._parse_packed(spectra[:want], side[:want])
+        with spans.span("gomp3.decoder.parse"):
+            spectra = np.zeros((self.CHUNK, 1152), np.int16)
+            side = np.zeros((self.CHUNK, SIDE_WIDTH), np.int16)
+            n = self._parse_packed(spectra[:want], side[:want])
         if n == 0:
             return None
         dev = self._device
-        packed = (
-            torch.from_numpy(spectra)[None].to(dev),
-            torch.from_numpy(side)[None].to(dev),
-        )
-        valid = torch.tensor([n], dtype=torch.int32, device=dev)
-        pcm, self._state = decode_chunk(packed, self._state, valid)
-        return pcm[0, : n * SAMPLES_PER_GR].cpu().numpy().tobytes()
+        with spans.span("gomp3.decoder.h2d"):
+            packed = (
+                torch.from_numpy(spectra)[None].to(dev),
+                torch.from_numpy(side)[None].to(dev),
+            )
+            valid = torch.tensor([n], dtype=torch.int32, device=dev)
+        with spans.span("gomp3.decoder.launch"):
+            pcm, self._state = decode_chunk(packed, self._state, valid)
+        with spans.span("gomp3.decoder.d2h"):
+            host = pcm[0, : n * SAMPLES_PER_GR].cpu().numpy()
+        spans.count("gomp3.decoder.granules", n)
+        spans.count("gomp3.decoder.rows", self.CHUNK)
+        return host.tobytes()
 
     def decode_more(self) -> bytes | None:
         return self._decode_granules(self.CHUNK)

@@ -37,6 +37,7 @@ buffers straight to its device. No lane crosses a device.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import itertools
 import time
@@ -47,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..bitstream import Source, read_header
 from ..bitstream.frameheader import Mode
 from ..bitstream.parser import FrameReader
@@ -147,7 +149,8 @@ class DeviceCorpus(tuple):
 class _Timer:
     """Per-phase time: CUDA events on the named device's current stream for
     device phases (read once, at the end, so timing adds no
-    synchronisation), the host clock otherwise."""
+    synchronisation), the host clock otherwise; a host phase run through
+    span() is also the span gomp3.corpus.<phase> (go_mp3_tpu_torch.spans)."""
 
     def __init__(self):
         self.host = dict.fromkeys(_PHASES, 0.0)
@@ -159,6 +162,14 @@ class _Timer:
             ev.record(torch.cuda.current_stream(device))
             return ev
         return time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, phase: str):
+        """A host phase: one host-clock reading, into its seconds and,
+        while a profiler runs, its span."""
+        with spans.timed("gomp3.corpus." + phase) as s:
+            yield
+        self.host[phase] += s.seconds
 
     def add(self, phase: str, start, end) -> None:
         if isinstance(start, torch.cuda.Event):
@@ -224,12 +235,11 @@ def decode_corpus(
     total = sum(len(s) for s in streams)
 
     for start in range(0, max_len, chunk_t):
-        t0 = time.perf_counter()
-        packed = [pack_granule_batch(s[start : start + chunk_t], pad_to=chunk_t)
-                  for s in streams]
-        stacked = GranuleBatch(*(torch.cat(f) for f in zip(*(b for b, _ in packed))))
-        valids = [v for _, v in packed]
-        timer.add("pack", t0, time.perf_counter())
+        with timer.span("pack"):
+            packed = [pack_granule_batch(s[start : start + chunk_t], pad_to=chunk_t)
+                      for s in streams]
+            stacked = GranuleBatch(*(torch.cat(f) for f in zip(*(b for b, _ in packed))))
+            valids = [v for _, v in packed]
         e0 = timer.mark(device)
         batch = batch_to(stacked, device)
         valid = torch.tensor(valids, dtype=torch.int32, device=device)
@@ -243,11 +253,10 @@ def decode_corpus(
         timer.add("h2d", e0, e1)
         timer.add("kernels", e1, e2)
         timer.add("d2h", e2, e3)
-        t0 = time.perf_counter()
-        for i, v in enumerate(valids):
-            if v:
-                parts[i].append(host[i, : v * SAMPLES_PER_GR].tobytes())
-        timer.add("emit", t0, time.perf_counter())
+        with timer.span("emit"):
+            for i, v in enumerate(valids):
+                if v:
+                    parts[i].append(host[i, : v * SAMPLES_PER_GR].tobytes())
 
     return CorpusResult(
         pcm=[b"".join(p) for p in parts],
@@ -318,19 +327,23 @@ def decode_corpus_fast(
         raise ValueError(f"drain must be >= 1, got {drain}")
     if not stream_bytes:
         return CorpusResult(pcm=[], granules=0, samples=0)
-    if fused:
-        try:
-            opts = (chunk_t, fetch, drain, tail_buckets, n_threads, mesh, sharded)
+    with spans.span("gomp3.corpus.call"):
+        if fused:
             try:
-                return _decode_fused(stream_bytes, *opts, split=mono_split)
-            except _MonoSplitMismatch:
-                return _decode_fused(stream_bytes, *opts, split=False)
+                opts = (chunk_t, fetch, drain, tail_buckets, n_threads, mesh, sharded)
+                try:
+                    return _decode_fused(stream_bytes, *opts, split=mono_split)
+                except _MonoSplitMismatch:
+                    spans.count("gomp3.corpus.reruns")
+                    return _decode_fused(stream_bytes, *opts, split=False)
+            except OverflowError:
+                spans.count("gomp3.corpus.reruns")
+                return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=False)
+        try:
+            return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=True)
         except OverflowError:
+            spans.count("gomp3.corpus.reruns")
             return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=False)
-    try:
-        return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=True)
-    except OverflowError:
-        return _decode(stream_bytes, chunk_t, mesh, sharded, fetch, int8=False)
 
 
 def _device_result(kept, sharded: bool):
@@ -415,26 +428,26 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
     pending = None  # (pcm host buffer, valids, events marking its D2H done)
 
     def emit(pcm_host, valids, done) -> None:
-        for ev in done:
-            ev.synchronize()
-        t0 = time.perf_counter()
-        host = pcm_host.numpy()
-        for s in range(n_streams):
-            v = int(valids[s])
-            if v:
-                parts[s].append(host[s, : v * SAMPLES_PER_GR].tobytes())
-        timer.add("emit", t0, time.perf_counter())
+        with spans.span("gomp3.corpus.wait"):
+            for ev in done:
+                ev.synchronize()
+        with timer.span("emit"):
+            host = pcm_host.numpy()
+            for s in range(n_streams):
+                v = int(valids[s])
+                if v:
+                    parts[s].append(host[s, : v * SAMPLES_PER_GR].tobytes())
 
     try:
         for c in itertools.count():
             buf = bufs[c % 2]
-            for ev in buf["copied"]:
-                ev.synchronize()
-            t0 = time.perf_counter()
-            valids = buf["valid"].numpy()
-            valids[:] = 0
-            source.parse(tuple(a.numpy() for a in buf["in"]), valids)
-            timer.add("parse", t0, time.perf_counter())
+            with spans.span("gomp3.corpus.wait"):
+                for ev in buf["copied"]:
+                    ev.synchronize()
+            with timer.span("parse"):
+                valids = buf["valid"].numpy()
+                valids[:] = 0
+                source.parse(tuple(a.numpy() for a in buf["in"]), valids)
             if not valids.any():
                 break
             total += int(valids.sum())
@@ -472,10 +485,10 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
         source.close()
     if valid_rows:
         pcm_dev = _device_result(kept, sharded)
-    _synchronize(mesh.devices)
-    t0 = time.perf_counter()
-    pcm = [b"".join(p) for p in parts]
-    timer.add("emit", t0, time.perf_counter())
+    with spans.span("gomp3.corpus.wait"):
+        _synchronize(mesh.devices)
+    with timer.span("emit"):
+        pcm = [b"".join(p) for p in parts]
     res = CorpusResult(
         pcm=pcm,
         granules=total,
@@ -638,18 +651,18 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     pending = None  # (host set, valids [k, S] internal, chunks, D2H events)
 
     def emit(hs, valids, n_seg, done) -> None:
-        for ev in done:
-            ev.synchronize()
-        t0 = time.perf_counter()
-        for g, pcm in zip(groups, hs["pcm"]):
-            host = pcm.numpy()
-            for c in range(n_seg):
-                for s in range(g.lo, g.hi):
-                    v = int(valids[c, s])
-                    if v:
-                        parts[order[s]].append(
-                            host[c, s - g.lo, : v * SAMPLES_PER_GR].tobytes())
-        timer.add("emit", t0, time.perf_counter())
+        with spans.span("gomp3.corpus.wait"):
+            for ev in done:
+                ev.synchronize()
+        with timer.span("emit"):
+            for g, pcm in zip(groups, hs["pcm"]):
+                host = pcm.numpy()
+                for c in range(n_seg):
+                    for s in range(g.lo, g.hi):
+                        v = int(valids[c, s])
+                        if v:
+                            parts[order[s]].append(
+                                host[c, s - g.lo, : v * SAMPLES_PER_GR].tobytes())
 
     def run_shard(sh: _Shard, hs, wires, widths, n_seg, done) -> None:
         """Entry sh's part of a segment: H2D of its rows, its groups
@@ -702,41 +715,40 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     try:
         for seg in itertools.count():
             hs = sets[seg % 2]
-            for ev in hs["copied"]:
-                ev.synchronize()
-            t0 = time.perf_counter()
-            n_seg = parser.parse()
-            timer.add("parse", t0, time.perf_counter())
+            with spans.span("gomp3.corpus.wait"):
+                for ev in hs["copied"]:
+                    ev.synchronize()
+            with timer.span("parse"):
+                n_seg = parser.parse()
             if n_seg == 0:
                 break
 
             # widths: per chunk (k = 1), or per segment with drain, the
             # bucket of the largest exact extent; then the wire rows
-            t0 = time.perf_counter()
-            widths = tuple(
-                bucket_tail_lines(
-                    max(tail_need_lines(parser.tail[c, g.lo:g.hi])
-                        for c in range(n_seg)),
-                    tail_buckets)
-                if tail_buckets else TAIL_LINES_FULL
-                for g in groups
-            )
-            wires = []
-            for g, w, flat, vbuf in zip(groups, widths, hs["wire"], hs["valid"]):
-                rows = flat[: k * (g.hi - g.lo) * stream_nbytes(t, w, g.mono)]
-                rows = rows.view(k, g.hi - g.lo, -1)
-                build = build_fused_chunk_mono if g.mono else build_fused_chunk
-                for c in range(n_seg):
-                    build(parser.tail[c, g.lo:g.hi], parser.head[c, g.lo:g.hi],
-                          parser.side[c, g.lo:g.hi], w, out=rows[c].numpy())
-                rows[n_seg:] = 0  # padding chunks of a short last segment
-                vbuf.numpy()[:] = parser.valids[:, g.lo:g.hi]
-                wires.append(rows)
-                wire_bytes += rows.numel()
-            widths_log += [widths] * n_seg
-            valids = parser.valids.copy()
-            total += int(valids.sum())
-            timer.add("pack", t0, time.perf_counter())
+            with timer.span("pack"):
+                widths = tuple(
+                    bucket_tail_lines(
+                        max(tail_need_lines(parser.tail[c, g.lo:g.hi])
+                            for c in range(n_seg)),
+                        tail_buckets)
+                    if tail_buckets else TAIL_LINES_FULL
+                    for g in groups
+                )
+                wires = []
+                for g, w, flat, vbuf in zip(groups, widths, hs["wire"], hs["valid"]):
+                    rows = flat[: k * (g.hi - g.lo) * stream_nbytes(t, w, g.mono)]
+                    rows = rows.view(k, g.hi - g.lo, -1)
+                    build = build_fused_chunk_mono if g.mono else build_fused_chunk
+                    for c in range(n_seg):
+                        build(parser.tail[c, g.lo:g.hi], parser.head[c, g.lo:g.hi],
+                              parser.side[c, g.lo:g.hi], w, out=rows[c].numpy())
+                    rows[n_seg:] = 0  # padding chunks of a short last segment
+                    vbuf.numpy()[:] = parser.valids[:, g.lo:g.hi]
+                    wires.append(rows)
+                    wire_bytes += rows.numel()
+                widths_log += [widths] * n_seg
+                valids = parser.valids.copy()
+                total += int(valids.sum())
 
             hs["copied"], done = [], []
             for sh in shards:
@@ -756,10 +768,10 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
 
     if valid_rows:
         pcm_dev = _device_result([sh.kept for sh in shards], sharded)
-    _synchronize(mesh.devices)
-    t0 = time.perf_counter()
-    pcm = [b"".join(p) for p in parts]
-    timer.add("emit", t0, time.perf_counter())
+    with spans.span("gomp3.corpus.wait"):
+        _synchronize(mesh.devices)
+    with timer.span("emit"):
+        pcm = [b"".join(p) for p in parts]
     res = CorpusResult(
         pcm=pcm,
         granules=total,

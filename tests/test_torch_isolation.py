@@ -60,6 +60,7 @@ MODULES = [
     "go_mp3_tpu_torch.parallel.mesh",
     "go_mp3_tpu_torch.parallel.segment",
     "go_mp3_tpu_torch.reference",
+    "go_mp3_tpu_torch.spans",
     "go_mp3_tpu_torch.tools",
     "go_mp3_tpu_torch.tools.bench_compare",
     "go_mp3_tpu_torch.tools.bench_single",
