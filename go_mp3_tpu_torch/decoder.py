@@ -55,6 +55,7 @@ from .utils.state import checkpoint_from_bytes, checkpoint_to_bytes
 __all__ = ["Decoder", "MP3Error", "NotSeekableError"]
 
 INVALID_LENGTH = -1
+GRANULE_BYTES = SAMPLES_PER_GR * 4  # a granule's PCM: 576 stereo 16-bit samples
 
 
 class NotSeekableError(MP3Error):
@@ -184,10 +185,13 @@ class Decoder:
         self._buf += self._dsp.decode_frames(frames)
         return True
 
-    def _decode_more(self) -> bool:
+    def _decode_more(self, shortfall: int = 0) -> bool:
+        """Decode into the buffer; False if nothing was left. `shortfall`,
+        the bytes a read still lacks, sizes the native path's decode after
+        a seek (_NativeStream.decode_more)."""
         if self._native is None:
             return self._read_frames(self._readahead)
-        pcm = self._native.decode_more()
+        pcm = self._native.decode_more(shortfall)
         if pcm is None:
             return False
         self._buf += pcm
@@ -212,7 +216,7 @@ class Decoder:
             return b"".join(chunks)
         with spans.span("gomp3.decoder.read"):
             while len(self._buf) < n:
-                if self._at_end or not self._decode_more():
+                if self._at_end or not self._decode_more(n - len(self._buf)):
                     break
             take = min(n, len(self._buf))
             out = bytes(self._buf[:take])
@@ -231,7 +235,15 @@ class Decoder:
     # -- io.Seeker -------------------------------------------------------------
     def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
         """Byte-accurate seek in the decoded PCM stream. Samples are 4-byte
-        aligned; seek to multiples of 4 to stay on sample boundaries."""
+        aligned; seek to multiples of 4 to stay on sample boundaries.
+
+        The seek restarts the parse a few frames before the target (the
+        warm-up, _warmup_depth) and parses those frames; a parse error at
+        the first of them raises here. On the device backend with the C++
+        parser it launches nothing: the next read decodes the warm-up
+        frames and its own granules in one device call and drops the
+        warm-up's PCM, and a checkpoint() before that read first decodes
+        the warm-up alone. The other paths decode the warm-up here."""
         if offset == 0 and whence == io.SEEK_CUR:
             return self._pos
         with spans.span("gomp3.decoder.seek"):
@@ -265,9 +277,13 @@ class Decoder:
         k = self._warmup_depth(f)
         spans.count("gomp3.decoder.warmup_frames", k)
         self._restart_at(self._frame_starts[f - k])
+        drop = k * self._bytes_per_frame + self._pos % self._bytes_per_frame
+        if self._device is not None and self._native is not None:
+            self._native.pend_frames(k + 1, self._bytes_per_frame, drop)
+            return npos
         if not self._decode_n_frames(k + 1):
             return npos
-        del self._buf[: k * self._bytes_per_frame + self._pos % self._bytes_per_frame]
+        del self._buf[:drop]
         return npos
 
     def _warmup_depth(self, f: int) -> int:
@@ -300,7 +316,11 @@ class Decoder:
         """The full decode state for a sample-exact resume on a Decoder over
         the same stream and backend: plain bytes and numpy values (the
         device state as [2,32,18] / [2,16,64] float32, so a checkpoint of
-        either package's device backend resumes on the other's)."""
+        either package's device backend resumes on the other's). Warm-up
+        frames a seek left parsed are decoded first, so the checkpoint is
+        the one a decode of them at the seek would give."""
+        if self._native is not None:
+            self._buf += self._native.settle()
         ck: dict = {
             "pos": self._pos,
             "buf": bytes(self._buf),
@@ -451,9 +471,19 @@ def _maybe_native_stream(reader, dsp: str, device: torch.device | None):
 class _NativeStream:
     """C++ parse -> the port's chunk decode on `device` (dsp "device") or
     the exact C++ DSP (dsp "exact"), with the Decoder's frame-oriented
-    contract: decode-ahead, restart at a byte offset for seeks."""
+    contract: decode-ahead, restart at a byte offset for seeks.
+
+    A decode is the readahead: CHUNK granules, CHUNK rows copied to the
+    card. After a seek on the device DSP, pend_frames parses the warm-up
+    frames into host rows and launches nothing; the next decode_more
+    parses whole frames after them until the rows cover the warm-up's
+    bytes and the read's shortfall, ships them in one device call of as
+    many rows (rounded up to RUN, at most CHUNK) and cuts the warm-up's
+    bytes from its PCM. settle() decodes pending rows alone (checkpoint()
+    calls it first); a restart or a state reset drops them."""
 
     CHUNK = 128  # granules per device call
+    RUN = 4  # K5's longest run of granules: a folded decode's rows are a multiple
 
     def __init__(self, data: bytes, dsp: str, device: torch.device | None):
         self._data = data
@@ -472,7 +502,13 @@ class _NativeStream:
     def index(self):
         return native.index_stream(self._data)
 
+    def _drop_pending(self) -> None:
+        # (spectra, side, granules, granules a frame) parsed at a seek
+        self._rows = None
+        self._drop = 0  # PCM bytes still to cut from the next decodes
+
     def reset_state(self) -> None:
+        self._drop_pending()
         if self._cpu_dsp is not None:
             self._cpu_dsp.reset()
         else:
@@ -492,6 +528,7 @@ class _NativeStream:
             )
 
     def restart(self, byte_offset: int) -> None:
+        self._drop_pending()
         self._parser.close()
         self._parser = native.NativeParser(self._data, byte_offset)
 
@@ -500,6 +537,13 @@ class _NativeStream:
 
     def _parse_packed(self, spectra, side) -> int:
         return self._parser.parse_packed_into(spectra, side)
+
+    def _capacity(self, frames: int, gpf: int) -> int:
+        """Rows to parse `frames` whole frames of `gpf` granules into, at
+        most CHUNK. The native parse loop keeps 2 output slots free per
+        iteration (a frame may yield 2 granules), so a capacity of N gives
+        only N-1 granules of single-granule (MPEG-2) frames: pad."""
+        return min(frames * gpf + (1 if gpf == 1 else 0), self.CHUNK)
 
     def _decode_granules(self, want: int) -> bytes | None:
         want = min(want, self.CHUNK)
@@ -516,16 +560,24 @@ class _NativeStream:
         # the packed int16 interface; rows past n stay zero and `valid`
         # masks them
         with spans.span("gomp3.decoder.parse"):
-            spectra = np.zeros((self.CHUNK, 1152), np.int16)
-            side = np.zeros((self.CHUNK, SIDE_WIDTH), np.int16)
+            spectra, side = self._new_rows()
             n = self._parse_packed(spectra[:want], side[:want])
         if n == 0:
             return None
+        return self._ship(spectra, side, n, self.CHUNK)
+
+    def _new_rows(self) -> tuple[np.ndarray, np.ndarray]:
+        return (np.zeros((self.CHUNK, 1152), np.int16),
+                np.zeros((self.CHUNK, SIDE_WIDTH), np.int16))
+
+    def _ship(self, spectra, side, n: int, rows: int) -> bytes:
+        """One device call over the first `rows` rows, n of them granules:
+        their PCM."""
         dev = self._device
         with spans.span("gomp3.decoder.h2d"):
             packed = (
-                torch.from_numpy(spectra)[None].to(dev),
-                torch.from_numpy(side)[None].to(dev),
+                torch.from_numpy(spectra[:rows])[None].to(dev),
+                torch.from_numpy(side[:rows])[None].to(dev),
             )
             valid = torch.tensor([n], dtype=torch.int32, device=dev)
         with spans.span("gomp3.decoder.launch"):
@@ -533,19 +585,64 @@ class _NativeStream:
         with spans.span("gomp3.decoder.d2h"):
             host = pcm[0, : n * SAMPLES_PER_GR].cpu().numpy()
         spans.count("gomp3.decoder.granules", n)
-        spans.count("gomp3.decoder.rows", self.CHUNK)
+        spans.count("gomp3.decoder.rows", rows)
         return host.tobytes()
 
-    def decode_more(self) -> bytes | None:
-        return self._decode_granules(self.CHUNK)
+    def pend_frames(self, n_frames: int, bytes_per_frame: int, drop: int) -> None:
+        """Parse up to n_frames frames (at most CHUNK granules) into host
+        rows for the next decode, and cut `drop` bytes from the PCM of the
+        decodes that follow. Launches nothing. A parse error raises here
+        where the eager decode of these frames raised: in the first frame
+        (the C++ parser stops short at a later one, and the next decode
+        parses on from there)."""
+        gpf = max(1, bytes_per_frame // GRANULE_BYTES)
+        cap = self._capacity(n_frames, gpf)
+        with spans.span("gomp3.decoder.parse"):
+            spectra, side = self._new_rows()
+            n = self._parse_packed(spectra[:cap], side[:cap])
+        self._rows = (spectra, side, n, gpf) if n else None
+        self._drop = drop
+
+    def decode_more(self, shortfall: int = 0) -> bytes | None:
+        """The next decode's PCM; None at the end of the audio. With rows
+        pending from a seek: those rows and whole frames after them until
+        they cover the bytes to cut and `shortfall` more, in one device
+        call; else the readahead."""
+        if self._rows is None:
+            pcm = self._decode_granules(self.CHUNK)
+        else:
+            spectra, side, n, gpf = self._rows
+            self._rows = None
+            granules = -(-(self._drop + shortfall) // GRANULE_BYTES)
+            cap = self._capacity(-(-granules // gpf), gpf)
+            if cap - n >= 2:
+                with spans.span("gomp3.decoder.parse"):
+                    n += self._parse_packed(spectra[n:cap], side[n:cap])
+            spans.count("gomp3.decoder.seek_folds")
+            rows = min(-(-n // self.RUN) * self.RUN, self.CHUNK)
+            pcm = self._ship(spectra, side, n, rows)
+        if pcm is None or not self._drop:
+            return pcm
+        cut = min(self._drop, len(pcm))  # a warm-up past this decode's PCM cuts on
+        self._drop -= cut
+        return pcm[cut:]
+
+    def settle(self) -> bytes:
+        """Decode what a seek left pending: its rows alone, and where its
+        warm-up was longer than CHUNK granules, readaheads until the
+        warm-up's bytes are cut. Their PCM, less those bytes."""
+        out = b""
+        while self._rows is not None or self._drop:
+            pcm = self.decode_more()
+            if pcm is None:
+                self._drop = 0
+                break
+            out += pcm
+        return out
 
     def decode_frames(self, n_frames: int, bytes_per_frame: int) -> bytes | None:
-        gpf = max(1, bytes_per_frame // (576 * 4))
-        # the native parse loop keeps 2 output slots free per iteration (a
-        # frame may yield 2 granules), so a capacity of N gives only N-1
-        # granules of single-granule (MPEG-2) frames: pad the request; an
-        # extra granule stays buffered for later reads
-        return self._decode_granules(n_frames * gpf + (1 if gpf == 1 else 0))
+        gpf = max(1, bytes_per_frame // GRANULE_BYTES)
+        return self._decode_granules(self._capacity(n_frames, gpf))
 
 
 class _StreamingNativeStream(_NativeStream):

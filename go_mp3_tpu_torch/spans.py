@@ -40,7 +40,9 @@ Counters:
    classed mono met a stereo granule; int8 tails overflowed to int16);
  - gomp3.decoder.warmup_frames: frames decoded and dropped before a
    seek's target; gomp3.decoder.granules: granules a device decode
-   returned; gomp3.decoder.rows: granule rows it copied to the card.
+   returned; gomp3.decoder.rows: granule rows it copied to the card;
+   gomp3.decoder.seek_folds: device decodes that carried a seek's
+   warm-up frames with the granules of the read after it.
 """
 
 from __future__ import annotations

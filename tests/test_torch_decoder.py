@@ -279,3 +279,213 @@ def test_gapless_decoder_matches_jax(data, backend):
     else:
         _assert_compliant(got, want)
     np.testing.assert_equal(port.duration(), ref.duration())
+
+
+# -- the post-seek decode: the warm-up and the first read in one device call
+
+GRANULE = 576 * 4  # PCM bytes a granule
+CARD = ("gomp3.decoder.h2d", "gomp3.decoder.launch", "gomp3.decoder.d2h")
+
+
+def _player_track() -> bytes:
+    """A track as the benchmark's gomp3_player (MPEG-1, 128 kbps joint
+    stereo), 6 s."""
+    import json
+
+    from benchmark.gen import traffic
+
+    root = CONF.parent
+    cfg = json.loads((root / "benchmark/configs/gomp3_player.json").read_text())
+    cfg.update(tracks=1, track_seconds=6, pool={"runs_per_bitrate": 2, "frames_per_run": 8})
+    return traffic.tracks(cfg, 2 ** 31 + 3)[0].data
+
+
+@pytest.fixture(scope="module", params=["mpeg1_128k", "mpeg2_lowrate"])
+def seekable(request):
+    """(stream, its linear decode): an MPEG-1 track of 230 frames and an
+    MPEG-2 mono stream of 208 frames (one granule a frame)."""
+    if request.param == "mpeg1_128k":
+        data = _player_track()
+    else:
+        data = (CONF / "synthetic_lowrate.mp3").read_bytes() * 8
+    return data, Decoder(data, device="cpu").read_all()
+
+
+@pytest.fixture
+def traced():
+    """A CPU profiler's window, with the port's span totals cleared."""
+    from torch.profiler import ProfilerActivity, profile
+
+    go_mp3_tpu_torch.spans.reset()
+    yield lambda: profile(activities=[ProfilerActivity.CPU])
+    go_mp3_tpu_torch.spans.reset()
+
+
+def _seek_plan(d: Decoder, pos: int) -> tuple[int, int, int]:
+    """(target frame, warm-up depth, PCM bytes the seek drops)."""
+    bpf = d.bytes_per_frame()
+    f = pos // bpf
+    k = d._warmup_depth(f)
+    return f, k, k * bpf + pos % bpf
+
+
+def _positions(d: Decoder) -> dict:
+    bpf = d.bytes_per_frame()
+    return {
+        "frame0": 4 * 17,  # k = 0
+        "frame1": bpf + 4 * 301,  # k = 1
+        "middle": (d.length() // bpf // 2) * bpf + 4 * 123,
+        "past_end": d.length() - 3000,  # the read runs past the stream's end
+    }
+
+
+@pytest.mark.parametrize("where", ["frame0", "frame1", "middle", "past_end"])
+def test_seek_then_read_is_one_device_call(seekable, traced, where):
+    """seek + read(32768): the linear decode's bytes, from one device call
+    that decodes the warm-up frames and whole frames after them until the
+    dropped bytes and the read are covered, in as many rows as granules
+    rounded up to 4; one fold counted."""
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    pos = _positions(d)[where]
+    f, k, drop = _seek_plan(d, pos)
+    if where.startswith("frame"):
+        assert k == int(where[-1])  # the warm-up starts at frame 0
+    with traced():
+        d.seek(pos)
+        got = d.read(32768)
+    assert got == linear[pos:pos + 32768] and d.tell() == pos + len(got)
+    tot = go_mp3_tpu_torch.spans.totals()
+    assert {n: tot["spans"][n]["n"] for n in CARD} == dict.fromkeys(CARD, 1)
+    counts = tot["counts"]
+    assert counts["gomp3.decoder.seek_folds"] == 1
+    assert counts["gomp3.decoder.warmup_frames"] == k
+    granules, rows = counts["gomp3.decoder.granules"], counts["gomp3.decoder.rows"]
+    gpf = d.bytes_per_frame() // GRANULE
+    frames_left = len(linear) // d.bytes_per_frame() - (f - k)
+    want_frames = -(-(drop + 32768) // (gpf * GRANULE))  # whole frames that cover them
+    assert granules == gpf * min(want_frames, frames_left)
+    assert rows == -(-granules // 4) * 4 <= 128
+
+
+def test_seek_then_read_all(seekable, traced):
+    """read(-1) after a seek: the first decode folds the warm-up into the
+    CHUNK's readahead (128 rows), every later decode is the readahead."""
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    bpf = d.bytes_per_frame()
+    pos = (d.length() // bpf // 3) * bpf + 4 * 55
+    f, k, _ = _seek_plan(d, pos)
+    with traced():
+        d.seek(pos)
+        got = d.read(-1)
+    assert got == linear[pos:]
+    per_decode = 64 if bpf == 2 * GRANULE else 127  # frames a 128-row decode parses
+    decodes = -(-(len(linear) // bpf - (f - k)) // per_decode)
+    tot = go_mp3_tpu_torch.spans.totals()
+    assert {n: tot["spans"][n]["n"] for n in CARD} == dict.fromkeys(CARD, decodes)
+    assert tot["counts"]["gomp3.decoder.seek_folds"] == 1
+    assert tot["counts"]["gomp3.decoder.rows"] == 128 * decodes
+
+
+def test_seek_seek_read(seekable, traced):
+    """A second seek drops the first one's pending rows: one device call,
+    at the second target."""
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    bpf = d.bytes_per_frame()
+    first, second = 3 * bpf + 8, (d.length() // bpf - 40) * bpf + 4 * 7
+    with traced():
+        d.seek(first)
+        d.seek(second)
+        got = d.read(20000)
+    assert got == linear[second:second + 20000]
+    tot = go_mp3_tpu_torch.spans.totals()
+    assert {n: tot["spans"][n]["n"] for n in CARD} == dict.fromkeys(CARD, 1)
+    assert tot["counts"]["gomp3.decoder.seek_folds"] == 1
+    assert tot["counts"]["gomp3.decoder.warmup_frames"] == (
+        _seek_plan(d, first)[1] + _seek_plan(d, second)[1])
+
+
+@pytest.mark.parametrize("where", ["frame1", "middle"])
+def test_checkpoint_after_seek_is_the_eager_one(seekable, where):
+    """checkpoint() right after a seek decodes the pending warm-up: the
+    buffer, parser offset, reservoir and DSP state of a decode of the k + 1
+    warm-up frames at the seek; resumed on a fresh Decoder, the read is the
+    linear decode's."""
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    pos = _positions(d)[where]
+    f, k, drop = _seek_plan(d, pos)
+    d.seek(pos)
+    ck = d.checkpoint_bytes()
+
+    eager = Decoder(data, device="cpu")._native  # the warm-up decoded at the seek
+    eager.restart(int(eager.index()[0][f - k]))
+    eager.reset_state()
+    pcm = eager.decode_frames(k + 1, d.bytes_per_frame())
+    got = go_mp3_tpu_torch.utils.state.checkpoint_from_bytes(ck)
+    assert got["buf"] == pcm[drop:] == linear[pos:(f + 1) * d.bytes_per_frame()]
+    assert got["parser_offset"] == eager._parser.tell()
+    assert got["reservoir"] == eager._parser.get_reservoir()
+    for a, b in zip(got["dsp"][1:], eager.dsp_state()[1:]):
+        np.testing.assert_array_equal(a, b)
+
+    assert d.read(32768) == linear[pos:pos + 32768]
+    fresh = Decoder(data, device="cpu")
+    fresh.resume_bytes(ck)
+    assert fresh.checkpoint_bytes() == ck
+    assert fresh.read(32768) == linear[pos:pos + 32768]
+
+
+def _corrupt_big_values(data: bytes, frame_start: int) -> bytes:
+    """The frame at frame_start with its first granule-channel's
+    part2_3_length 1 and big_values 511: the C++ parser's "is_pos too big",
+    a hard error; the frame index is unchanged."""
+    b1, b3 = data[frame_start + 1], data[frame_start + 3]
+    mpeg1, mono, crc = b1 & 0x08, b3 >> 6 == 3, not b1 & 1
+    at = 8 * (frame_start + 4 + 2 * crc)  # the side info's first bit
+    at += (9 + (5 if mono else 3) + (4 if mono else 8)) if mpeg1 else (8 + (1 if mono else 2))
+    bits = list("".join(f"{x:08b}" for x in data))
+    bits[at:at + 21] = f"{1:012b}" + f"{511:09b}"
+    return bytes(int("".join(bits[i:i + 8]), 2) for i in range(0, len(bits), 8))
+
+
+def _broken_at(seekable, bad: str):
+    """(stream with a hard error in one frame of a seek's warm-up, the
+    seek's byte offset, target frame, warm-up depth, bytes dropped)."""
+    data, _ = seekable
+    d = Decoder(data, device="cpu")
+    bpf = d.bytes_per_frame()
+    pos = (d.length() // bpf - 30) * bpf + 4 * 9  # past the open's readahead
+    f, k, drop = _seek_plan(d, pos)
+    assert k >= 2
+    starts = d._native.index()[0]
+    broken = _corrupt_big_values(data, int(starts[f - k if bad == "first" else f]))
+    assert Decoder(broken, device="cpu").length() == d.length()
+    return broken, pos, f, k, drop
+
+
+def test_corrupt_warmup_frame_raises_from_seek(seekable):
+    """A hard parse error in the first frame the seek parses raises from
+    seek, as go-mp3's Seek returns its frames' errors."""
+    broken, pos, *_ = _broken_at(seekable, "first")
+    b = Decoder(broken, device="cpu")
+    with pytest.raises(ValueError, match="native parse failed"):
+        b.seek(pos)
+
+
+def test_corrupt_target_frame_still_cuts_the_warmup(seekable):
+    """A hard error in the target frame stops the seek's C++ parse short
+    (the parser skips that frame); the read parses on from there, and the
+    dropped bytes are cut in full from the PCM that follows, though the
+    warm-up's own PCM is shorter than they are."""
+    broken, pos, f, k, drop = _broken_at(seekable, "target")
+    b = Decoder(broken, device="cpu")
+    b.seek(pos)
+    got = b.read(32768)
+    eager = Decoder(broken, device="cpu")._native
+    eager.restart(int(eager.index()[0][f - k]))
+    eager.reset_state()
+    pcm = eager.decode_frames(k + 1, b.bytes_per_frame()) + eager.decode_more()
+    assert got == pcm[drop:drop + 32768] and len(got) == 32768
