@@ -184,6 +184,14 @@ class _Timer:
         return out
 
 
+def _count_returned(granules: int, mono_granules: int, wire_bytes: int) -> None:
+    """The counters of the attempt whose result a decode_corpus_fast call
+    returns (go_mp3_tpu_torch.spans; nothing unless a profiler runs)."""
+    spans.count("gomp3.corpus.granules", granules)
+    spans.count("gomp3.corpus.mono_granules", mono_granules)
+    spans.count("gomp3.corpus.wire_bytes", wire_bytes)
+
+
 def _check_mesh_device(mesh: Mesh, device) -> None:
     if device is not None and not mesh.holds(device):
         raise ValueError(f"device {device} is not in the mesh {mesh.devices}")
@@ -489,6 +497,7 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
         _synchronize(mesh.devices)
     with timer.span("emit"):
         pcm = [b"".join(p) for p in parts]
+    _count_returned(total, 0, wire_bytes)
     res = CorpusResult(
         pcm=pcm,
         granules=total,
@@ -646,7 +655,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     parser = _SegmentParser([streams[i] for i in order], k, t, groups, n_threads)
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
     valid_rows = []  # fetch=False: internal-order valids per chunk
-    widths_log, wire_bytes, total, capture_s = [], 0, 0, 0.0
+    widths_log, wire_bytes, total, mono_total, capture_s = [], 0, 0, 0, 0.0
     replays0 = SegmentGraph.replays
     pending = None  # (host set, valids [k, S] internal, chunks, D2H events)
 
@@ -746,6 +755,8 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
                     vbuf.numpy()[:] = parser.valids[:, g.lo:g.hi]
                     wires.append(rows)
                     wire_bytes += rows.numel()
+                    if g.mono:
+                        mono_total += int(vbuf.numpy().sum())
                 widths_log += [widths] * n_seg
                 valids = parser.valids.copy()
                 total += int(valids.sum())
@@ -772,6 +783,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
         _synchronize(mesh.devices)
     with timer.span("emit"):
         pcm = [b"".join(p) for p in parts]
+    _count_returned(total, mono_total, wire_bytes)
     res = CorpusResult(
         pcm=pcm,
         granules=total,

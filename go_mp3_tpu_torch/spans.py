@@ -38,6 +38,10 @@ the root's own time):
 Counters:
  - gomp3.corpus.reruns: whole decode_corpus_fast runs made again (a lane
    classed mono met a stereo granule; int8 tails overflowed to int16);
+   of the run whose result a call returns: gomp3.corpus.granules, the
+   valid granules; gomp3.corpus.mono_granules, those shipped on the
+   half-width mono wire; gomp3.corpus.wire_bytes, the bytes shipped to
+   the devices (CorpusResult.wire_bytes);
  - gomp3.decoder.warmup_frames: frames decoded and dropped before a
    seek's target; gomp3.decoder.granules: granules a device decode
    returned; gomp3.decoder.rows: granule rows it copied to the card;

@@ -4,8 +4,9 @@ Off without a profiler (nothing entered, nothing counted); under
 torch.profiler every span is an event of the trace, its totals add up
 (own time plus nested time is its time, one thread at a time), the
 corpus's host phases are the spans' own readings, the counters count the
-chunks, decodes, warm-up frames and reruns, and the PCM is the same with
-tracing on and off."""
+chunks, decodes, warm-up frames and reruns, the corpus's counters are the
+returned result's granules, mono-wire granules and wire bytes, and the PCM
+is the same with tracing on and off."""
 
 import json
 import math
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 import util_synth as U  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from benchmark.gen import traffic  # noqa: E402
+from benchmark.gen import mp3gen_lsf, traffic  # noqa: E402
 from go_mp3_tpu_torch import Decoder, decode_corpus_fast, spans  # noqa: E402
 from go_mp3_tpu_torch.reference import index_stream  # noqa: E402
 
@@ -118,7 +119,10 @@ def test_corpus_counts_match_its_chunks(lanes, traced, fetch):
     assert got == {"gomp3.corpus.call": 1, "gomp3.corpus.parse": chunks + 1,
                    "gomp3.corpus.pack": chunks, "gomp3.corpus.emit": emits,
                    "gomp3.corpus.wait": chunks + 1 + (chunks if fetch else 0) + 1}
-    assert spans.totals()["counts"] == {}
+    mono = sum(len(index_stream(d)[0]) for d in lanes[1:])  # one granule an LSF frame
+    assert spans.totals()["counts"] == {"gomp3.corpus.granules": stats.granules,
+                                        "gomp3.corpus.mono_granules": mono,
+                                        "gomp3.corpus.wire_bytes": stats.wire_bytes}
 
 
 @pytest.mark.parametrize("fetch", [True, False], ids=["fetch", "ondevice"])
@@ -231,8 +235,46 @@ def test_reruns_are_counted(traced, case):
         assert got.pcm[0] == Decoder(streams[0], device="cpu").read_all()
     else:  # one stereo group: a wire width a chunk
         assert all(len(w) == 1 for w in got.chunk_widths)
-    assert spans.totals()["counts"] == {"gomp3.corpus.reruns": 1}
+    # one rerun; the other counters only of the run whose result came back
+    assert spans.totals()["counts"] == {"gomp3.corpus.reruns": 1,
+                                        "gomp3.corpus.granules": got.granules,
+                                        "gomp3.corpus.mono_granules": 0,
+                                        "gomp3.corpus.wire_bytes": got.wire_bytes}
     assert spans.totals()["spans"]["gomp3.corpus.call"]["n"] == 1
+
+
+def _counter_batch(kind: str) -> list[bytes]:
+    """A small batch of the benchmark's: fma_clips' MPEG-1 stereo clips, or
+    speech_lsf's MPEG-2 mono tracks."""
+    pool = {"runs_per_bitrate": 2, "frames_per_run": 8}
+    if kind == "fma":
+        cfg = json.loads((ROOT / "benchmark/configs/fma_clips.json").read_text())
+        cfg.update(catalogue_clips=3, clip_seconds=2, pool=pool)
+        batch = traffic.clip_batches(cfg, {"batch_clips": 3}, 2 ** 31 + 5)[0]
+    else:
+        cfg = json.loads((ROOT / "benchmark/configs/speech_lsf.json").read_text())
+        cfg.update(catalogue_tracks=3, track_frames=90, pool=pool)
+        batch = mp3gen_lsf.track_batches(cfg, {"batch_clips": 3}, 2 ** 31 + 5)[0]
+    return [s.data for s in batch]
+
+
+@pytest.mark.parametrize("kind", ["fma", "lsf"])
+def test_corpus_counters_are_the_results(traced, kind, monkeypatch):
+    """Off, the corpus counters record nothing; on, they are the result's
+    granules and wire bytes, every granule of the mono batch on the mono
+    wire and none of the stereo one."""
+    streams = _counter_batch(kind)
+    monkeypatch.setattr(spans, "_Record", None)  # off: no span is entered either
+    off = decode_corpus_fast(streams, chunk_t=CHUNK_T, fetch=False, device="cpu")
+    assert spans.totals() == {"spans": {}, "counts": {}}
+    monkeypatch.undo()
+    with traced():
+        res = decode_corpus_fast(streams, chunk_t=CHUNK_T, fetch=False, device="cpu").stats
+    assert res.granules == off.stats.granules > 0 and res.wire_bytes == off.stats.wire_bytes
+    assert spans.totals()["counts"] == {
+        "gomp3.corpus.granules": res.granules,
+        "gomp3.corpus.mono_granules": res.granules if kind == "lsf" else 0,
+        "gomp3.corpus.wire_bytes": res.wire_bytes}
 
 
 def test_two_threads_do_not_nest_into_each_other(traced):
