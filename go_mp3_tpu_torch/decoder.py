@@ -48,7 +48,7 @@ from .device import resolve_device
 from .golden import GoldenDecoder
 from .models.pipeline import StreamDecoder
 from .native import lib as native
-from .ops.granule import init_state, state_from_numpy, state_to_numpy
+from .ops.granule import DecodeState, init_state, state_from_numpy, state_to_numpy
 from .ops.kernels import decode_chunk
 from .utils.state import checkpoint_from_bytes, checkpoint_to_bytes
 
@@ -64,8 +64,30 @@ class NotSeekableError(MP3Error):
 
 
 def _device_state(state) -> tuple:
+    # copies: on the CPU the arrays would share the state's memory, and a
+    # native stream's state after a seek is the shared zero state
     store, v_fifo = state_to_numpy(state)
-    return ("device", store[0], v_fifo[0])
+    return ("device", store[0].copy(), v_fifo[0].copy())
+
+
+_ZERO_STATES: dict[torch.device, DecodeState] = {}
+
+
+def _zero_state(device: torch.device) -> DecodeState:
+    """One stream's zero DSP state on `device` (an indexed device on CUDA),
+    made once per device and shared: the chain never writes its input
+    state, it writes a new one."""
+    state = _ZERO_STATES.get(device)
+    if state is None:
+        state = _ZERO_STATES[device] = init_state(1, device)
+    return state
+
+
+def _indexed(device: torch.device | None) -> torch.device | None:
+    """`device` with its index where it names CUDA without one."""
+    if device is not None and device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class Decoder:
@@ -480,7 +502,11 @@ class _NativeStream:
     bytes and the read's shortfall, ships them in one device call of as
     many rows (rounded up to RUN, at most CHUNK) and cuts the warm-up's
     bytes from its PCM. settle() decodes pending rows alone (checkpoint()
-    calls it first); a restart or a state reset drops them."""
+    calls it first); a restart or a state reset drops them.
+
+    The device DSP parses into, ships from and reads back through one
+    _Staging a stream, made at its first device call; a state reset points
+    the state at the device's shared zero state."""
 
     CHUNK = 128  # granules per device call
     RUN = 4  # K5's longest run of granules: a folded decode's rows are a multiple
@@ -492,8 +518,9 @@ class _NativeStream:
 
     def _init_dsp(self, dsp: str, device: torch.device | None) -> None:
         self._dsp_kind = dsp
-        self._device = device
+        self._device = _indexed(device)
         self._cpu_dsp = native.NativeDsp() if dsp == "exact" else None
+        self._staging: _Staging | None = None
         self.reset_state()
 
     def sample_rate(self) -> int:
@@ -503,7 +530,7 @@ class _NativeStream:
         return native.index_stream(self._data)
 
     def _drop_pending(self) -> None:
-        # (spectra, side, granules, granules a frame) parsed at a seek
+        # (granules, granules a frame) parsed into the staging at a seek
         self._rows = None
         self._drop = 0  # PCM bytes still to cut from the next decodes
 
@@ -512,7 +539,7 @@ class _NativeStream:
         if self._cpu_dsp is not None:
             self._cpu_dsp.reset()
         else:
-            self._state = init_state(1, self._device)
+            self._state = _zero_state(self._device)
 
     def dsp_state(self) -> tuple:
         if self._cpu_dsp is not None:
@@ -557,35 +584,42 @@ class _NativeStream:
                 return None
             return self._cpu_dsp.decode(spectra[:n], sfl[:n], sfs[:n], meta[:n]).tobytes()
 
-        # the packed int16 interface; rows past n stay zero and `valid`
-        # masks them
+        # the packed int16 interface, parsed into the staging's host rows
         with spans.span("gomp3.decoder.parse"):
-            spectra, side = self._new_rows()
-            n = self._parse_packed(spectra[:want], side[:want])
+            st = self._rows_in()
+            n = self._parse_packed(st.spectra_np[:want], st.side_np[:want])
         if n == 0:
             return None
-        return self._ship(spectra, side, n, self.CHUNK)
+        return self._ship(n, self.CHUNK)
 
-    def _new_rows(self) -> tuple[np.ndarray, np.ndarray]:
-        return (np.zeros((self.CHUNK, 1152), np.int16),
-                np.zeros((self.CHUNK, SIDE_WIDTH), np.int16))
+    def _rows_in(self) -> _Staging:
+        """The staging, its host rows free to parse into: the last device
+        call waited for its copies (_ship)."""
+        if self._staging is None:
+            self._staging = _Staging(self.CHUNK, self._device)
+        return self._staging
 
-    def _ship(self, spectra, side, n: int, rows: int) -> bytes:
-        """One device call over the first `rows` rows, n of them granules:
-        their PCM."""
-        dev = self._device
+    def _ship(self, n: int, rows: int) -> bytes:
+        """One device call over the staging's first `rows` host rows, n of
+        them granules: their PCM. Rows [n, rows) are cleared (`valid`
+        masks them; the parser wrote rows [0, n) whole), then one async
+        copy up, the chain into the staging's PCM, and one copy down with
+        one wait for the stream. That wait also frees the host rows:
+        the copies up have run when it returns, so the next parse may
+        write them."""
+        st = self._staging
         with spans.span("gomp3.decoder.h2d"):
-            packed = (
-                torch.from_numpy(spectra[:rows])[None].to(dev),
-                torch.from_numpy(side[:rows])[None].to(dev),
-            )
-            valid = torch.tensor([n], dtype=torch.int32, device=dev)
+            st.spectra_np[n:rows] = 0
+            st.side_np[n:rows] = 0
+            packed, valid, out = st.upload(n, rows)
         with spans.span("gomp3.decoder.launch"):
-            pcm, self._state = decode_chunk(packed, self._state, valid)
+            pcm, self._state = decode_chunk(packed, self._state, valid, out)
         with spans.span("gomp3.decoder.d2h"):
-            host = pcm[0, : n * SAMPLES_PER_GR].cpu().numpy()
+            host = st.download(pcm, n * SAMPLES_PER_GR)
         spans.count("gomp3.decoder.granules", n)
         spans.count("gomp3.decoder.rows", rows)
+        if st.pinned:
+            spans.count("gomp3.decoder.pinned_calls")
         return host.tobytes()
 
     def pend_frames(self, n_frames: int, bytes_per_frame: int, drop: int) -> None:
@@ -598,9 +632,9 @@ class _NativeStream:
         gpf = max(1, bytes_per_frame // GRANULE_BYTES)
         cap = self._capacity(n_frames, gpf)
         with spans.span("gomp3.decoder.parse"):
-            spectra, side = self._new_rows()
-            n = self._parse_packed(spectra[:cap], side[:cap])
-        self._rows = (spectra, side, n, gpf) if n else None
+            st = self._rows_in()
+            n = self._parse_packed(st.spectra_np[:cap], st.side_np[:cap])
+        self._rows = (n, gpf) if n else None
         self._drop = drop
 
     def decode_more(self, shortfall: int = 0) -> bytes | None:
@@ -611,16 +645,17 @@ class _NativeStream:
         if self._rows is None:
             pcm = self._decode_granules(self.CHUNK)
         else:
-            spectra, side, n, gpf = self._rows
+            n, gpf = self._rows
             self._rows = None
             granules = -(-(self._drop + shortfall) // GRANULE_BYTES)
             cap = self._capacity(-(-granules // gpf), gpf)
             if cap - n >= 2:
+                st = self._staging
                 with spans.span("gomp3.decoder.parse"):
-                    n += self._parse_packed(spectra[n:cap], side[n:cap])
+                    n += self._parse_packed(st.spectra_np[n:cap], st.side_np[n:cap])
             spans.count("gomp3.decoder.seek_folds")
             rows = min(-(-n // self.RUN) * self.RUN, self.CHUNK)
-            pcm = self._ship(spectra, side, n, rows)
+            pcm = self._ship(n, rows)
         if pcm is None or not self._drop:
             return pcm
         cut = min(self._drop, len(pcm))  # a warm-up past this decode's PCM cuts on
@@ -643,6 +678,71 @@ class _NativeStream:
     def decode_frames(self, n_frames: int, bytes_per_frame: int) -> bytes | None:
         gpf = max(1, bytes_per_frame // GRANULE_BYTES)
         return self._decode_granules(self._capacity(n_frames, gpf))
+
+
+class _Staging:
+    """A native stream's buffers for its device calls, made once and reused
+    by every call: one host block that the C++ parser writes and the PCM
+    comes back to, and its twin on the device. On CUDA the host block is
+    pinned, taken from torch's caching host allocator, so a stream opened
+    after another one closed reuses its block; on the CPU it is plain
+    memory and the copies are plain copies, the same path.
+
+    The block, in int16 words: `valid` (int32) and padding to 16 bytes,
+    then side [rows, SIDE_WIDTH], spectra [rows, 1152] and the PCM
+    [rows * 576, 2]. A call of r rows copies the block up to spectra row
+    r in one copy: `valid`, every side row (rows past r unread) and r
+    rows of spectra."""
+
+    HEAD = 8  # words before the side rows: `valid` and padding
+
+    def __init__(self, rows: int, device: torch.device):
+        self.pinned = device.type == "cuda"
+        self._spectra0 = self.HEAD + rows * SIDE_WIDTH
+        self._pcm0 = self._spectra0 + rows * 1152
+        words = self._pcm0 + rows * SAMPLES_PER_GR * 2
+        self._host = torch.empty(words, dtype=torch.int16, pin_memory=self.pinned)
+        self._dev = torch.empty(words, dtype=torch.int16, device=device)
+        block = self._host.numpy()
+        self.side_np = block[self.HEAD:self._spectra0].reshape(rows, SIDE_WIDTH)
+        self.spectra_np = block[self._spectra0:self._pcm0].reshape(rows, 1152)
+        self._valid_np = block[:2].view(np.int32)
+        self._pcm_np = block[self._pcm0:]
+        self._pcm = self._host[self._pcm0:]
+        self._valid = self._dev[:2].view(torch.int32)
+        self._calls: dict[int, tuple] = {}  # rows -> the views a call of as many takes
+
+    def _views(self, rows: int) -> tuple:
+        v = self._calls.get(rows)
+        if v is None:
+            up = self._spectra0 + rows * 1152
+            d = self._dev
+            v = self._calls[rows] = (
+                d[:up], self._host[:up],
+                (d[self._spectra0:up].view(1, rows, 1152),
+                 d[self.HEAD:self.HEAD + rows * SIDE_WIDTH].view(1, rows, SIDE_WIDTH)),
+                d[self._pcm0:self._pcm0 + rows * SAMPLES_PER_GR * 2].view(
+                    1, rows * SAMPLES_PER_GR, 2))
+        return v
+
+    def upload(self, n: int, rows: int):
+        """valid = n and the first `rows` rows, copied up in one copy (async
+        on CUDA) -> ((spectra [1, rows, 1152], side [1, rows, SIDE_WIDTH]),
+        valid int32 [1], the PCM's `out` [1, rows * 576, 2]) on the
+        device."""
+        self._valid_np[0] = n
+        dst, src, packed, out = self._views(rows)
+        dst.copy_(src, non_blocking=True)
+        return packed, self._valid, out
+
+    def download(self, pcm: torch.Tensor, samples: int) -> np.ndarray:
+        """The first `samples` stereo samples of `pcm`, copied down and
+        waited for: a view of the host block, valid until the next call.
+        Into pinned memory a blocking copy_ is one async copy on the
+        current stream and one synchronize of it, both inside torch."""
+        words = samples * 2
+        self._pcm[:words].copy_(pcm.view(-1)[:words])
+        return self._pcm_np[:words]
 
 
 class _StreamingNativeStream(_NativeStream):

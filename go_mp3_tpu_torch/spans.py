@@ -33,8 +33,9 @@ the root's own time):
  - gomp3.decoder.open, .seek, .read: Decoder(...), Decoder.seek (and the
    seeks through seek_to_time, seek_to_sample and skip), Decoder.read;
    inside a device decode of the native path, gomp3.decoder.parse (the
-   host arrays and the C++ parse), .h2d (the copies to the card), .launch
-   (the chain's launch), .d2h (the PCM back, waiting for the chain).
+   C++ parse into the stream's host rows), .h2d (the rows' copies to the
+   card, enqueued), .launch (the chain's launch), .d2h (the PCM's copy
+   back, enqueued, and the one wait for it and the chain).
 Counters:
  - gomp3.corpus.reruns: whole decode_corpus_fast runs made again (a lane
    classed mono met a stereo granule; int8 tails overflowed to int16);
@@ -46,7 +47,9 @@ Counters:
    seek's target; gomp3.decoder.granules: granules a device decode
    returned; gomp3.decoder.rows: granule rows it copied to the card;
    gomp3.decoder.seek_folds: device decodes that carried a seek's
-   warm-up frames with the granules of the read after it.
+   warm-up frames with the granules of the read after it;
+   gomp3.decoder.pinned_calls: device decodes whose copies went through
+   the stream's pinned staging (every one on CUDA, none on the CPU).
 """
 
 from __future__ import annotations

@@ -489,3 +489,114 @@ def test_corrupt_target_frame_still_cuts_the_warmup(seekable):
     eager.reset_state()
     pcm = eager.decode_frames(k + 1, b.bytes_per_frame()) + eager.decode_more()
     assert got == pcm[drop:drop + 32768] and len(got) == 32768
+
+
+# -- the native stream's staging: host rows, device buffers and the zero state
+# reused by every device call
+
+
+def _staging_tensors(d: Decoder) -> list:
+    st = d._native._staging
+    return [v for v in vars(st).values() if isinstance(v, torch.Tensor)]
+
+
+def _dirty(d: Decoder) -> None:
+    """Every buffer of the stream's staging, host and device, filled with
+    0x5A bytes."""
+    for t in _staging_tensors(d):
+        t.view(torch.uint8).fill_(0x5A)
+
+
+def test_parser_writes_every_word_of_a_granule(seekable):
+    """The C++ packed parse writes every line and side word of each granule
+    it returns, whatever the rows held: a stream parsed into 0x5A rows
+    equals the same parse into zero rows, chunk by chunk (reused rows rest
+    on this)."""
+    from go_mp3_tpu_torch.consts import SIDE_WIDTH
+    from go_mp3_tpu_torch.native import lib as native
+
+    data, _ = seekable
+    clean, dirty = native.NativeParser(data), native.NativeParser(data)
+    chunks = 0
+    while True:
+        rows = [(np.zeros((128, 1152), np.int16), np.zeros((128, SIDE_WIDTH), np.int16)),
+                (np.full((128, 1152), 0x5A5A, np.int16),
+                 np.full((128, SIDE_WIDTH), 0x5A5A, np.int16))]
+        n = clean.parse_packed_into(*rows[0])
+        assert dirty.parse_packed_into(*rows[1]) == n
+        if n == 0:
+            break
+        np.testing.assert_array_equal(rows[1][0][:n], rows[0][0][:n])
+        np.testing.assert_array_equal(rows[1][1][:n], rows[0][1][:n])
+        chunks += 1
+    assert chunks >= 2
+
+
+def test_dirty_staging_gives_the_linear_bytes(seekable):
+    """A stream's staging filled with garbage before each seek: every seek
+    and read gives a fresh Decoder's bytes and the linear decode's, the
+    folded seek call and the 128-row readahead both."""
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    bpf = d.bytes_per_frame()
+    for pos in (_positions(d)["middle"], bpf + 4 * 301, (d.length() // bpf - 40) * bpf + 8):
+        _dirty(d)
+        d.seek(pos)
+        got = d.read(32768)
+        fresh = Decoder(data, device="cpu")
+        fresh.seek(pos)
+        assert got == fresh.read(32768) == linear[pos:pos + 32768]
+    _dirty(d)
+    pos = (d.length() // bpf // 4) * bpf + 4 * 55
+    d.seek(pos)
+    d.read(32768)
+    _dirty(d)  # the readahead's rows too
+    assert d.read(-1) == linear[pos + 32768:]
+
+
+def test_staging_and_zero_state_are_reused(seekable):
+    """50 seeks and reads ship through the buffers the stream made at its
+    first device call, and every seek points the state at the device's one
+    zero state, which stays zero."""
+    from go_mp3_tpu_torch.decoder import _zero_state
+
+    data, linear = seekable
+    d = Decoder(data, device="cpu")
+    ptrs = [t.data_ptr() for t in _staging_tensors(d)]
+    zero = _zero_state(torch.device("cpu"))
+    rng = np.random.default_rng(17)
+    for pos in rng.integers(0, d.length() - 4, 50):
+        pos = int(pos) & ~3
+        d.seek(pos)
+        assert d._native._state is zero
+        assert d.read(8192) == linear[pos:pos + 8192]
+    assert [t.data_ptr() for t in _staging_tensors(d)] == ptrs
+    assert not zero.store.any() and not zero.v_fifo.any()
+
+
+def test_checkpoint_and_resume_do_not_alias_the_zero_state(seekable):
+    """A checkpoint taken at the zero state (a seek past the end) holds its
+    own arrays, and a resume builds its own state: writing either leaves
+    the shared zero state zero, and the bytes after a resume are the
+    linear decode's."""
+    from go_mp3_tpu_torch.decoder import _zero_state
+
+    data, linear = seekable
+    zero = _zero_state(torch.device("cpu"))
+    d = Decoder(data, device="cpu")
+    d.seek(d.length() + 100)
+    ck = d.checkpoint()
+    for a in ck["dsp"][1:]:
+        a += 1.0
+    assert not zero.store.any() and not zero.v_fifo.any()
+
+    pos = _positions(d)["middle"]
+    d.seek(pos)
+    ck = d.checkpoint()
+    fresh = Decoder(data, device="cpu")
+    fresh.resume(ck)
+    assert fresh._native._state.store is not zero.store
+    assert fresh.read(32768) == d.read(32768) == linear[pos:pos + 32768]
+    fresh.resume(ck)
+    assert fresh.read(32768) == linear[pos:pos + 32768]
+    assert not zero.store.any() and not zero.v_fifo.any()
