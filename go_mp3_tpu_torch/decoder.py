@@ -127,12 +127,11 @@ class Decoder:
         self._frame_reader = FrameReader()
         self._backend_name = backend
         self._readahead = max(1, readahead_frames)
+        self._dsp = None  # the native stream decodes
         if backend == "golden":  # always the pure-Python parse
             self._dsp = _GoldenBackend()
         elif self._native is None:
             self._dsp = _DeviceBackend(self._device)
-        else:  # the native stream decodes; nothing to build here
-            self._dsp = _NullBackend()
         self._buf = bytearray()
         self._pos = 0  # decoded-byte position
         self._length = INVALID_LENGTH
@@ -204,7 +203,7 @@ class Decoder:
             frames.append(f)
         if not frames:
             return False
-        self._buf += self._dsp.decode_frames(frames)
+        self._buf += self._dsp.decode(frames)
         return True
 
     def _decode_more(self, shortfall: int = 0) -> bool:
@@ -214,15 +213,6 @@ class Decoder:
         if self._native is None:
             return self._read_frames(self._readahead)
         pcm = self._native.decode_more(shortfall)
-        if pcm is None:
-            return False
-        self._buf += pcm
-        return True
-
-    def _decode_n_frames(self, n: int) -> bool:
-        if self._native is None:
-            return self._read_frames(n)
-        pcm = self._native.decode_frames(n, self._bytes_per_frame)
         if pcm is None:
             return False
         self._buf += pcm
@@ -261,11 +251,11 @@ class Decoder:
 
         The seek restarts the parse a few frames before the target (the
         warm-up, _warmup_depth) and parses those frames; a parse error at
-        the first of them raises here. On the device backend with the C++
-        parser it launches nothing: the next read decodes the warm-up
-        frames and its own granules in one device call and drops the
-        warm-up's PCM, and a checkpoint() before that read first decodes
-        the warm-up alone. The other paths decode the warm-up here."""
+        the first of them raises here. With the C++ parser it decodes
+        nothing: the next read decodes the warm-up frames and its own
+        granules in one decode and drops the warm-up's PCM, and a
+        checkpoint() before that read first decodes the warm-up alone. The
+        pure-Python parse path decodes the warm-up here."""
         if offset == 0 and whence == io.SEEK_CUR:
             return self._pos
         with spans.span("gomp3.decoder.seek"):
@@ -285,10 +275,11 @@ class Decoder:
 
         self._pos = max(npos, 0)
         self._buf.clear()
-        self._frame_reader.reset()
-        self._dsp.reset()
         if self._native is not None:
             self._native.reset_state()
+        else:
+            self._frame_reader.reset()
+            self._dsp.reset()
         self._have_frame = False
         if self._pos >= self._length:  # at or past the end: reads return b""
             self._at_end = True
@@ -298,14 +289,14 @@ class Decoder:
         f = self._pos // self._bytes_per_frame
         k = self._warmup_depth(f)
         spans.count("gomp3.decoder.warmup_frames", k)
-        self._restart_at(self._frame_starts[f - k])
         drop = k * self._bytes_per_frame + self._pos % self._bytes_per_frame
-        if self._device is not None and self._native is not None:
+        if self._native is not None:
+            self._native.restart(self._frame_starts[f - k])
             self._native.pend_frames(k + 1, self._bytes_per_frame, drop)
-            return npos
-        if not self._decode_n_frames(k + 1):
-            return npos
-        del self._buf[:drop]
+        else:
+            self._source.seek(self._frame_starts[f - k])
+            if self._read_frames(k + 1):
+                del self._buf[:drop]
         return npos
 
     def _warmup_depth(self, f: int) -> int:
@@ -327,12 +318,6 @@ class Decoder:
             k += 1
         return k
 
-    def _restart_at(self, byte_offset: int) -> None:
-        if self._native is not None:
-            self._native.restart(byte_offset)
-        else:
-            self._source.seek(byte_offset)
-
     # -- checkpoint / resume ---------------------------------------------------
     def checkpoint(self) -> dict:
         """The full decode state for a sample-exact resume on a Decoder over
@@ -352,7 +337,7 @@ class Decoder:
         if self._native is not None:
             ck["parser_offset"] = self._native._parser.tell()
             ck["reservoir"] = self._native._parser.get_reservoir()
-            ck["dsp"] = self._native.dsp_state()
+            ck["dsp"] = self._native._staging.state()
             return ck
         prev = self._frame_reader.prev_bits
         ck["reservoir"] = prev.vec if prev is not None else b""
@@ -380,7 +365,7 @@ class Decoder:
         if self._native is not None:
             self._native.restart(ck["parser_offset"])
             self._native._parser.set_reservoir(ck["reservoir"])
-            self._native.set_dsp_state(store, v_fifo)
+            self._native._staging.set_state(store, v_fifo)
             return
         self._source.seek(ck["source_pos"])
         self._frame_reader.prev_bits = (
@@ -495,33 +480,29 @@ class _NativeStream:
     the exact C++ DSP (dsp "exact"), with the Decoder's frame-oriented
     contract: decode-ahead, restart at a byte offset for seeks.
 
-    A decode is the readahead: CHUNK granules, CHUNK rows copied to the
-    card. After a seek on the device DSP, pend_frames parses the warm-up
-    frames into host rows and launches nothing; the next decode_more
-    parses whole frames after them until the rows cover the warm-up's
-    bytes and the read's shortfall, ships them in one device call of as
-    many rows (rounded up to RUN, at most CHUNK) and cuts the warm-up's
-    bytes from its PCM. settle() decodes pending rows alone (checkpoint()
-    calls it first); a restart or a state reset drops them.
+    Every decode is one path: decode_more parses granules into the rows of
+    the stream's `_staging` (the DSP kind's rows and DSP, chosen at the
+    open: _Staging on the device, _ExactDsp for the C++ DSP) and runs the
+    DSP once on them, in as many rows as granules rounded up to RUN (at
+    most CHUNK). With nothing pending it parses up to CHUNK granules, the
+    readahead. A seek's pend_frames parses the warm-up frames into the
+    rows and decodes nothing; the decode_more after it parses whole frames
+    on into the same rows until they cover the warm-up's bytes and the
+    read's shortfall, and cuts the warm-up's bytes from its PCM. settle()
+    decodes pending rows alone (checkpoint() calls it first); a restart or
+    a state reset drops them."""
 
-    The device DSP parses into, ships from and reads back through one
-    _Staging a stream, made at its first device call; a state reset points
-    the state at the device's shared zero state."""
+    CHUNK = 128  # granules per decode, a multiple of RUN
+    RUN = 4  # K5's longest run of granules: a decode's rows are a multiple
 
-    CHUNK = 128  # granules per device call
-    RUN = 4  # K5's longest run of granules: a folded decode's rows are a multiple
-
-    def __init__(self, data: bytes, dsp: str, device: torch.device | None):
+    def __init__(self, data: bytes, dsp: str, device: torch.device | None, parser=None):
         self._data = data
-        self._parser = native.NativeParser(data)
-        self._init_dsp(dsp, device)
-
-    def _init_dsp(self, dsp: str, device: torch.device | None) -> None:
-        self._dsp_kind = dsp
-        self._device = _indexed(device)
-        self._cpu_dsp = native.NativeDsp() if dsp == "exact" else None
-        self._staging: _Staging | None = None
-        self.reset_state()
+        self._parser = native.NativeParser(data) if parser is None else parser
+        if dsp == "device":
+            self._staging = _Staging(self.CHUNK, _indexed(device))
+        else:
+            self._staging = _ExactDsp(self.CHUNK)
+        self._drop_pending()
 
     def sample_rate(self) -> int:
         return self._parser.sample_rate
@@ -530,40 +511,26 @@ class _NativeStream:
         return native.index_stream(self._data)
 
     def _drop_pending(self) -> None:
-        # (granules, granules a frame) parsed into the staging at a seek
-        self._rows = None
+        self._pending = None  # (granules, granules a frame) parsed at a seek
         self._drop = 0  # PCM bytes still to cut from the next decodes
 
     def reset_state(self) -> None:
         self._drop_pending()
-        if self._cpu_dsp is not None:
-            self._cpu_dsp.reset()
-        else:
-            self._state = _zero_state(self._device)
-
-    def dsp_state(self) -> tuple:
-        if self._cpu_dsp is not None:
-            return ("exact", *self._cpu_dsp.get_state())
-        return _device_state(self._state)
-
-    def set_dsp_state(self, store, v_fifo) -> None:
-        if self._cpu_dsp is not None:
-            self._cpu_dsp.set_state(store, v_fifo)
-        else:
-            self._state = state_from_numpy(
-                np.asarray(store)[None], np.asarray(v_fifo)[None], self._device
-            )
+        self._staging.reset()
 
     def restart(self, byte_offset: int) -> None:
         self._drop_pending()
         self._parser.close()
         self._parser = native.NativeParser(self._data, byte_offset)
 
-    def _parse(self, spectra, sfl, sfs, meta) -> int:
-        return self._parser.parse_into(spectra, sfl, sfs, meta)
+    def _parse(self, into, *rows) -> int:
+        """into(parser, *rows): the granules the parser wrote to `rows`; 0
+        at the end of the audio."""
+        return into(self._parser, *rows)
 
-    def _parse_packed(self, spectra, side) -> int:
-        return self._parser.parse_packed_into(spectra, side)
+    def _parse_rows(self, lo: int, hi: int) -> int:
+        with spans.span("gomp3.decoder.parse"):
+            return self._staging.parse(self._parse, lo, hi)
 
     def _capacity(self, frames: int, gpf: int) -> int:
         """Rows to parse `frames` whole frames of `gpf` granules into, at
@@ -572,91 +539,35 @@ class _NativeStream:
         only N-1 granules of single-granule (MPEG-2) frames: pad."""
         return min(frames * gpf + (1 if gpf == 1 else 0), self.CHUNK)
 
-    def _decode_granules(self, want: int) -> bytes | None:
-        want = min(want, self.CHUNK)
-        if self._cpu_dsp is not None:
-            spectra = np.zeros((want, 2, 576), np.int16)
-            sfl = np.zeros((want, 2, 22), np.int32)
-            sfs = np.zeros((want, 2, 39), np.int32)
-            meta = np.zeros((want, native.META_WIDTH), np.int32)
-            n = self._parse(spectra, sfl, sfs, meta)
-            if n == 0:
-                return None
-            return self._cpu_dsp.decode(spectra[:n], sfl[:n], sfs[:n], meta[:n]).tobytes()
-
-        # the packed int16 interface, parsed into the staging's host rows
-        with spans.span("gomp3.decoder.parse"):
-            st = self._rows_in()
-            n = self._parse_packed(st.spectra_np[:want], st.side_np[:want])
-        if n == 0:
-            return None
-        return self._ship(n, self.CHUNK)
-
-    def _rows_in(self) -> _Staging:
-        """The staging, its host rows free to parse into: the last device
-        call waited for its copies (_ship)."""
-        if self._staging is None:
-            self._staging = _Staging(self.CHUNK, self._device)
-        return self._staging
-
-    def _ship(self, n: int, rows: int) -> bytes:
-        """One device call over the staging's first `rows` host rows, n of
-        them granules: their PCM. Rows [n, rows) are cleared (`valid`
-        masks them; the parser wrote rows [0, n) whole), then one async
-        copy up, the chain into the staging's PCM, and one copy down with
-        one wait for the stream. That wait also frees the host rows:
-        the copies up have run when it returns, so the next parse may
-        write them."""
-        st = self._staging
-        with spans.span("gomp3.decoder.h2d"):
-            st.spectra_np[n:rows] = 0
-            st.side_np[n:rows] = 0
-            packed, valid, out = st.upload(n, rows)
-        with spans.span("gomp3.decoder.launch"):
-            pcm, self._state = decode_chunk(packed, self._state, valid, out)
-        with spans.span("gomp3.decoder.d2h"):
-            host = st.download(pcm, n * SAMPLES_PER_GR)
-        spans.count("gomp3.decoder.granules", n)
-        spans.count("gomp3.decoder.rows", rows)
-        if st.pinned:
-            spans.count("gomp3.decoder.pinned_calls")
-        return host.tobytes()
-
     def pend_frames(self, n_frames: int, bytes_per_frame: int, drop: int) -> None:
-        """Parse up to n_frames frames (at most CHUNK granules) into host
+        """Parse up to n_frames frames (at most CHUNK granules) into the
         rows for the next decode, and cut `drop` bytes from the PCM of the
-        decodes that follow. Launches nothing. A parse error raises here
-        where the eager decode of these frames raised: in the first frame
-        (the C++ parser stops short at a later one, and the next decode
-        parses on from there)."""
+        decodes that follow. Decodes nothing. A parse error in the first
+        frame raises here (the C++ parser stops short at a later one, and
+        the next decode parses on from there)."""
         gpf = max(1, bytes_per_frame // GRANULE_BYTES)
-        cap = self._capacity(n_frames, gpf)
-        with spans.span("gomp3.decoder.parse"):
-            st = self._rows_in()
-            n = self._parse_packed(st.spectra_np[:cap], st.side_np[:cap])
-        self._rows = (n, gpf) if n else None
+        n = self._parse_rows(0, self._capacity(n_frames, gpf))
+        self._pending = (n, gpf) if n else None
         self._drop = drop
 
     def decode_more(self, shortfall: int = 0) -> bytes | None:
         """The next decode's PCM; None at the end of the audio. With rows
         pending from a seek: those rows and whole frames after them until
-        they cover the bytes to cut and `shortfall` more, in one device
-        call; else the readahead."""
-        if self._rows is None:
-            pcm = self._decode_granules(self.CHUNK)
+        they cover the bytes to cut and `shortfall` more (a seek fold);
+        else the readahead."""
+        if self._pending is None:
+            n, cap = 0, self.CHUNK
         else:
-            n, gpf = self._rows
-            self._rows = None
+            (n, gpf), self._pending = self._pending, None
             granules = -(-(self._drop + shortfall) // GRANULE_BYTES)
             cap = self._capacity(-(-granules // gpf), gpf)
-            if cap - n >= 2:
-                st = self._staging
-                with spans.span("gomp3.decoder.parse"):
-                    n += self._parse_packed(st.spectra_np[n:cap], st.side_np[n:cap])
             spans.count("gomp3.decoder.seek_folds")
-            rows = min(-(-n // self.RUN) * self.RUN, self.CHUNK)
-            pcm = self._ship(n, rows)
-        if pcm is None or not self._drop:
+        if cap - n >= 2:  # fewer free rows parse nothing
+            n += self._parse_rows(n, cap)
+        if n == 0:
+            return None
+        pcm = self._staging.decode(n, -(-n // self.RUN) * self.RUN)
+        if not self._drop:
             return pcm
         cut = min(self._drop, len(pcm))  # a warm-up past this decode's PCM cuts on
         self._drop -= cut
@@ -667,7 +578,7 @@ class _NativeStream:
         warm-up was longer than CHUNK granules, readaheads until the
         warm-up's bytes are cut. Their PCM, less those bytes."""
         out = b""
-        while self._rows is not None or self._drop:
+        while self._pending is not None or self._drop:
             pcm = self.decode_more()
             if pcm is None:
                 self._drop = 0
@@ -675,18 +586,16 @@ class _NativeStream:
             out += pcm
         return out
 
-    def decode_frames(self, n_frames: int, bytes_per_frame: int) -> bytes | None:
-        gpf = max(1, bytes_per_frame // GRANULE_BYTES)
-        return self._decode_granules(self._capacity(n_frames, gpf))
-
 
 class _Staging:
-    """A native stream's buffers for its device calls, made once and reused
-    by every call: one host block that the C++ parser writes and the PCM
+    """A native stream's device DSP: the buffers of its device calls, made
+    once at the stream's open and reused by every call, the chain call and
+    the DSP state. One host block that the C++ parser writes and the PCM
     comes back to, and its twin on the device. On CUDA the host block is
     pinned, taken from torch's caching host allocator, so a stream opened
     after another one closed reuses its block; on the CPU it is plain
-    memory and the copies are plain copies, the same path.
+    memory and the copies are plain copies, the same path. A state reset
+    points the state at the device's shared zero state.
 
     The block, in int16 words: `valid` (int32) and padding to 16 bytes,
     then side [rows, SIDE_WIDTH], spectra [rows, 1152] and the PCM
@@ -697,6 +606,7 @@ class _Staging:
     HEAD = 8  # words before the side rows: `valid` and padding
 
     def __init__(self, rows: int, device: torch.device):
+        self._device = device
         self.pinned = device.type == "cuda"
         self._spectra0 = self.HEAD + rows * SIDE_WIDTH
         self._pcm0 = self._spectra0 + rows * 1152
@@ -711,6 +621,23 @@ class _Staging:
         self._pcm = self._host[self._pcm0:]
         self._valid = self._dev[:2].view(torch.int32)
         self._calls: dict[int, tuple] = {}  # rows -> the views a call of as many takes
+        self.reset()
+
+    def reset(self) -> None:
+        self._state = _zero_state(self._device)
+
+    def state(self) -> tuple:
+        return _device_state(self._state)
+
+    def set_state(self, store, v_fifo) -> None:
+        self._state = state_from_numpy(
+            np.asarray(store)[None], np.asarray(v_fifo)[None], self._device
+        )
+
+    def parse(self, parse, lo: int, hi: int) -> int:
+        """Granules the packed C++ parse wrote to host rows [lo, hi)."""
+        return parse(native.NativeParser.parse_packed_into,
+                     self.spectra_np[lo:hi], self.side_np[lo:hi])
 
     def _views(self, rows: int) -> tuple:
         v = self._calls.get(rows)
@@ -725,24 +652,69 @@ class _Staging:
                     1, rows * SAMPLES_PER_GR, 2))
         return v
 
-    def upload(self, n: int, rows: int):
-        """valid = n and the first `rows` rows, copied up in one copy (async
-        on CUDA) -> ((spectra [1, rows, 1152], side [1, rows, SIDE_WIDTH]),
-        valid int32 [1], the PCM's `out` [1, rows * 576, 2]) on the
-        device."""
-        self._valid_np[0] = n
-        dst, src, packed, out = self._views(rows)
-        dst.copy_(src, non_blocking=True)
-        return packed, self._valid, out
+    def decode(self, n: int, rows: int) -> bytes:
+        """One device call over the first `rows` host rows, n of them
+        granules: their PCM. Rows [n, rows) are cleared (`valid` masks
+        them; the parser wrote rows [0, n) whole); then valid = n and the
+        rows go up in one copy (async on CUDA), the chain writes the PCM
+        into the device block, and the PCM comes down into the host block
+        in one blocking copy_, which into pinned memory is one async copy
+        on the current stream and one synchronize of it, both inside
+        torch. That wait also frees the host rows: the copy up has run
+        when it returns, so the next parse may write them."""
+        with spans.span("gomp3.decoder.h2d"):
+            self.spectra_np[n:rows] = 0
+            self.side_np[n:rows] = 0
+            self._valid_np[0] = n
+            dst, src, packed, out = self._views(rows)
+            dst.copy_(src, non_blocking=True)
+        with spans.span("gomp3.decoder.launch"):
+            pcm, self._state = decode_chunk(packed, self._state, self._valid, out)
+        with spans.span("gomp3.decoder.d2h"):
+            words = n * SAMPLES_PER_GR * 2
+            self._pcm[:words].copy_(pcm.view(-1)[:words])
+        spans.count("gomp3.decoder.granules", n)
+        spans.count("gomp3.decoder.rows", rows)
+        if self.pinned:
+            spans.count("gomp3.decoder.pinned_calls")
+        return self._pcm_np[:words].tobytes()
 
-    def download(self, pcm: torch.Tensor, samples: int) -> np.ndarray:
-        """The first `samples` stereo samples of `pcm`, copied down and
-        waited for: a view of the host block, valid until the next call.
-        Into pinned memory a blocking copy_ is one async copy on the
-        current stream and one synchronize of it, both inside torch."""
-        words = samples * 2
-        self._pcm[:words].copy_(pcm.view(-1)[:words])
-        return self._pcm_np[:words]
+
+class _ExactDsp:
+    """A native stream's exact DSP: native.NativeDsp, which replicates the
+    reference decoder's float32 operation order, and the four row arrays
+    the C++ parser writes for it. A parse zeroes the rows it parses into:
+    only the packed parse is known to write every word of a granule."""
+
+    def __init__(self, rows: int):
+        self._dsp = native.NativeDsp()
+        self._rows = (
+            np.zeros((rows, 2, 576), np.int16),
+            np.zeros((rows, 2, 22), np.int32),
+            np.zeros((rows, 2, 39), np.int32),
+            np.zeros((rows, native.META_WIDTH), np.int32),
+        )
+
+    def reset(self) -> None:
+        self._dsp.reset()
+
+    def state(self) -> tuple:
+        return ("exact", *self._dsp.get_state())
+
+    def set_state(self, store, v_fifo) -> None:
+        self._dsp.set_state(store, v_fifo)
+
+    def parse(self, parse, lo: int, hi: int) -> int:
+        """Granules the C++ parse wrote to rows [lo, hi), zeroed first."""
+        rows = [a[lo:hi] for a in self._rows]
+        for a in rows:
+            a.fill(0)
+        return parse(native.NativeParser.parse_into, *rows)
+
+    def decode(self, n: int, rows: int) -> bytes:
+        """The PCM of the first n rows' granules (`rows` is the device's
+        call size; the C++ DSP takes the granules alone)."""
+        return self._dsp.decode(*(a[:n] for a in self._rows)).tobytes()
 
 
 class _StreamingNativeStream(_NativeStream):
@@ -754,27 +726,16 @@ class _StreamingNativeStream(_NativeStream):
 
     def __init__(self, reader, dsp: str, device: torch.device | None):
         self._reader = reader
-        self._data = b""
-        self._parser = native.StreamingNativeParser()
-        self._init_dsp(dsp, device)
+        super().__init__(b"", dsp, device, native.StreamingNativeParser())
 
-    def _feed_more(self) -> bool:
-        if self._parser.eof:
-            return False
-        chunk = self._reader.read(self.FEED)
-        self._parser.feed(chunk or b"", eof=not chunk)
-        return True
-
-    def _parse(self, spectra, sfl, sfs, meta) -> int:
-        while (n := self._parser.parse_into(spectra, sfl, sfs, meta)) == 0:
-            if not self._feed_more():
+    def _parse(self, into, *rows) -> int:
+        """As _NativeStream._parse, feeding the parser from the reader
+        while it asks for more; 0 at the end of the reader."""
+        while (n := into(self._parser, *rows)) == 0:
+            if self._parser.eof:
                 return 0
-        return n
-
-    def _parse_packed(self, spectra, side) -> int:
-        while (n := self._parser.parse_packed_into(spectra, side)) == 0:
-            if not self._feed_more():
-                return 0
+            chunk = self._reader.read(self.FEED)
+            self._parser.feed(chunk or b"", eof=not chunk)
         return n
 
     def index(self):
@@ -782,13 +743,6 @@ class _StreamingNativeStream(_NativeStream):
 
     def restart(self, byte_offset: int) -> None:
         raise NotSeekableError()
-
-
-class _NullBackend:
-    """The frame backend of the native paths, which decode in the stream."""
-
-    def reset(self) -> None:
-        pass
 
 
 class _DeviceBackend:
@@ -800,7 +754,7 @@ class _DeviceBackend:
     def reset(self) -> None:
         self._sd.reset()
 
-    def decode_frames(self, frames: list[ParsedFrame]) -> bytes:
+    def decode(self, frames: list[ParsedFrame]) -> bytes:
         for f in frames:
             self._sd.feed_frame(f)
         return self._sd.decode_pending(flush=True)
@@ -823,7 +777,7 @@ class _GoldenBackend:
     def reset(self) -> None:
         self._gd = GoldenDecoder()
 
-    def decode_frames(self, frames: list[ParsedFrame]) -> bytes:
+    def decode(self, frames: list[ParsedFrame]) -> bytes:
         return b"".join(
             self._gd.decode_frame(f.header, f.side_info, f.main_data) for f in frames
         )

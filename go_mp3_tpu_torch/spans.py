@@ -32,10 +32,11 @@ the root's own time):
    on the card (an event's or a stream's synchronize);
  - gomp3.decoder.open, .seek, .read: Decoder(...), Decoder.seek (and the
    seeks through seek_to_time, seek_to_sample and skip), Decoder.read;
-   inside a device decode of the native path, gomp3.decoder.parse (the
-   C++ parse into the stream's host rows), .h2d (the rows' copies to the
-   card, enqueued), .launch (the chain's launch), .d2h (the PCM's copy
-   back, enqueued, and the one wait for it and the chain).
+   inside them, on the native path, gomp3.decoder.parse (a C++ parse
+   into the stream's rows: a seek's warm-up frames, or a decode's
+   granules), and in a device decode .h2d (the rows' copies to the card,
+   enqueued), .launch (the chain's launch), .d2h (the PCM's copy back,
+   enqueued, and the one wait for it and the chain).
 Counters:
  - gomp3.corpus.reruns: whole decode_corpus_fast runs made again (a lane
    classed mono met a stereo granule; int8 tails overflowed to int16);
@@ -44,12 +45,17 @@ Counters:
    half-width mono wire; gomp3.corpus.wire_bytes, the bytes shipped to
    the devices (CorpusResult.wire_bytes);
  - gomp3.decoder.warmup_frames: frames decoded and dropped before a
-   seek's target; gomp3.decoder.granules: granules a device decode
-   returned; gomp3.decoder.rows: granule rows it copied to the card;
-   gomp3.decoder.seek_folds: device decodes that carried a seek's
-   warm-up frames with the granules of the read after it;
-   gomp3.decoder.pinned_calls: device decodes whose copies went through
-   the stream's pinned staging (every one on CUDA, none on the CPU).
+   seek's target. A native stream decodes on one path: each decode
+   parses into the stream's rows and runs the DSP once on them, up to
+   128 granules (the readahead), or after a seek the warm-up frames it
+   parsed and whole frames after them until they cover the read.
+   gomp3.decoder.granules: granules a device decode returned;
+   gomp3.decoder.rows: rows it copied to the card, its granules rounded
+   up to 4 (K5's longest run); gomp3.decoder.seek_folds: decodes that
+   carried a seek's warm-up frames with the granules of the read after
+   it; gomp3.decoder.pinned_calls: device decodes whose copies went
+   through the stream's pinned staging (every one on CUDA, none on the
+   CPU).
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ from go_mp3_tpu import Decoder as JaxDecoder  # noqa: E402
 from go_mp3_tpu import GaplessDecoder as JaxGapless  # noqa: E402
 from go_mp3_tpu_torch import Decoder, GaplessDecoder, MP3Error, NotSeekableError  # noqa: E402
 from go_mp3_tpu_torch import reference  # noqa: E402
+from go_mp3_tpu_torch.ops.kernels import decode_chunk  # noqa: E402
 from go_mp3_tpu_torch.reference import FULL_MAXDIFF, FULL_RMS, iso_metrics  # noqa: E402
 
 CONF = Path(__file__).resolve().parent.parent / "conformance"
@@ -203,11 +204,29 @@ def test_python_parse_path_equals_native(data):
 
 
 @pytest.mark.parametrize("feed", [517, 1 << 16])
-def test_streaming_source_equals_native(data, feed):
-    d = Decoder(NonSeekable(data, feed), device="cpu")
+def test_streaming_source_equals_native(data, feed, traced, monkeypatch):
+    """A non-seekable source reads the native path's bytes; each device
+    call, however few granules a feed let the parser return, ships them
+    in as many rows rounded up to 4."""
+    want = Decoder(data, device="cpu").read_all()
+    calls = []  # (granules, rows) of each device call, as the chain gets them
+
+    def chain(packed, state, valid, out):
+        calls.append((int(valid[0]), packed[0].shape[1]))
+        return decode_chunk(packed, state, valid, out)
+
+    monkeypatch.setattr(go_mp3_tpu_torch.decoder, "decode_chunk", chain)
+    with traced():
+        d = Decoder(NonSeekable(data, feed), device="cpu")
+        pcm = d.read_all()
     assert type(d._native).__name__ == "_StreamingNativeStream"
     assert d.length() == -1 and d.duration() == -1.0
-    assert d.read_all() == Decoder(data, device="cpu").read_all()
+    assert pcm == want
+    counts = go_mp3_tpu_torch.spans.totals()["counts"]
+    rows = [-(-n // 4) * 4 for n, _ in calls]
+    assert [r for _, r in calls] == rows
+    assert counts["gomp3.decoder.rows"] == sum(rows)
+    assert counts["gomp3.decoder.granules"] == sum(n for n, _ in calls) == len(pcm) // GRANULE
     with pytest.raises(NotSeekableError):
         d.seek(0, io.SEEK_SET)
     with pytest.raises(NotSeekableError):
@@ -369,8 +388,10 @@ def test_seek_then_read_is_one_device_call(seekable, traced, where):
 
 
 def test_seek_then_read_all(seekable, traced):
-    """read(-1) after a seek: the first decode folds the warm-up into the
-    CHUNK's readahead (128 rows), every later decode is the readahead."""
+    """read(-1) after a seek: the first decode folds the warm-up into a
+    decode as long as the readahead (the read's shortfall passes CHUNK
+    rows), every later decode is the readahead; each ships its granules
+    in as many rows rounded up to 4."""
     data, linear = seekable
     d = Decoder(data, device="cpu")
     bpf = d.bytes_per_frame()
@@ -380,12 +401,15 @@ def test_seek_then_read_all(seekable, traced):
         d.seek(pos)
         got = d.read(-1)
     assert got == linear[pos:]
-    per_decode = 64 if bpf == 2 * GRANULE else 127  # frames a 128-row decode parses
-    decodes = -(-(len(linear) // bpf - (f - k)) // per_decode)
+    gpf = bpf // GRANULE
+    per_decode = 64 if gpf == 2 else 127  # frames a decode of 128 rows parses
+    full, last = divmod(len(linear) // bpf - (f - k), per_decode)
+    granules = [per_decode * gpf] * full + [last * gpf] * (last > 0)
     tot = go_mp3_tpu_torch.spans.totals()
-    assert {n: tot["spans"][n]["n"] for n in CARD} == dict.fromkeys(CARD, decodes)
+    assert {n: tot["spans"][n]["n"] for n in CARD} == dict.fromkeys(CARD, len(granules))
     assert tot["counts"]["gomp3.decoder.seek_folds"] == 1
-    assert tot["counts"]["gomp3.decoder.rows"] == 128 * decodes
+    assert tot["counts"]["gomp3.decoder.granules"] == sum(granules)
+    assert tot["counts"]["gomp3.decoder.rows"] == sum(-(-g // 4) * 4 for g in granules)
 
 
 def test_seek_seek_read(seekable, traced):
@@ -407,32 +431,56 @@ def test_seek_seek_read(seekable, traced):
         _seek_plan(d, first)[1] + _seek_plan(d, second)[1])
 
 
-@pytest.mark.parametrize("where", ["frame1", "middle"])
-def test_checkpoint_after_seek_is_the_eager_one(seekable, where):
-    """checkpoint() right after a seek decodes the pending warm-up: the
-    buffer, parser offset, reservoir and DSP state of a decode of the k + 1
-    warm-up frames at the seek; resumed on a fresh Decoder, the read is the
-    linear decode's."""
+BACKENDS = {"device": {"device": "cpu"}, "exact": {"backend": "exact"}}
+
+
+def _linear(seekable, backend: str) -> bytes:
     data, linear = seekable
-    d = Decoder(data, device="cpu")
+    return linear if backend == "device" else Decoder(data, backend="exact").read_all()
+
+
+def _decoded_once(data: bytes, backend: str, frame: int, n_frames: int) -> tuple:
+    """(PCM, native stream) of a fresh native stream that pends n_frames
+    frames from `frame` with nothing to drop and decodes them once."""
+    eager = Decoder(data, **BACKENDS[backend])._native
+    starts, bpf, _ = eager.index()
+    eager.restart(int(starts[frame]))
+    eager.reset_state()
+    eager.pend_frames(n_frames, int(bpf), 0)
+    return eager.decode_more(), eager
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+@pytest.mark.parametrize("where", ["frame1", "middle"])
+def test_checkpoint_after_seek_is_the_eager_one(seekable, where, backend):
+    """checkpoint() right after a seek decodes the pending warm-up: the
+    buffer of a decode of the k + 1 warm-up frames at the seek (the linear
+    decode's bytes, and on the device backend the pure-Python path's,
+    which decodes them at the seek), and the parser offset, reservoir and
+    DSP state of a stream that decoded those frames once; resumed on a
+    fresh Decoder, the read is the linear decode's."""
+    data, _ = seekable
+    linear = _linear(seekable, backend)
+    d = Decoder(data, **BACKENDS[backend])
     pos = _positions(d)[where]
     f, k, drop = _seek_plan(d, pos)
     d.seek(pos)
     ck = d.checkpoint_bytes()
 
-    eager = Decoder(data, device="cpu")._native  # the warm-up decoded at the seek
-    eager.restart(int(eager.index()[0][f - k]))
-    eager.reset_state()
-    pcm = eager.decode_frames(k + 1, d.bytes_per_frame())
     got = go_mp3_tpu_torch.utils.state.checkpoint_from_bytes(ck)
+    pcm, eager = _decoded_once(data, backend, f - k, k + 1)
     assert got["buf"] == pcm[drop:] == linear[pos:(f + 1) * d.bytes_per_frame()]
+    if backend == "device":
+        py = Decoder(data, use_native=False, device="cpu")
+        py.seek(pos)
+        assert got["buf"] == py.checkpoint()["buf"]
     assert got["parser_offset"] == eager._parser.tell()
     assert got["reservoir"] == eager._parser.get_reservoir()
-    for a, b in zip(got["dsp"][1:], eager.dsp_state()[1:]):
+    for a, b in zip(got["dsp"][1:], eager._staging.state()[1:]):
         np.testing.assert_array_equal(a, b)
 
     assert d.read(32768) == linear[pos:pos + 32768]
-    fresh = Decoder(data, device="cpu")
+    fresh = Decoder(data, **BACKENDS[backend])
     fresh.resume_bytes(ck)
     assert fresh.checkpoint_bytes() == ck
     assert fresh.read(32768) == linear[pos:pos + 32768]
@@ -466,28 +514,28 @@ def _broken_at(seekable, bad: str):
     return broken, pos, f, k, drop
 
 
-def test_corrupt_warmup_frame_raises_from_seek(seekable):
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_corrupt_warmup_frame_raises_from_seek(seekable, backend):
     """A hard parse error in the first frame the seek parses raises from
     seek, as go-mp3's Seek returns its frames' errors."""
     broken, pos, *_ = _broken_at(seekable, "first")
-    b = Decoder(broken, device="cpu")
+    b = Decoder(broken, **BACKENDS[backend])
     with pytest.raises(ValueError, match="native parse failed"):
         b.seek(pos)
 
 
-def test_corrupt_target_frame_still_cuts_the_warmup(seekable):
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_corrupt_target_frame_still_cuts_the_warmup(seekable, backend):
     """A hard error in the target frame stops the seek's C++ parse short
     (the parser skips that frame); the read parses on from there, and the
     dropped bytes are cut in full from the PCM that follows, though the
     warm-up's own PCM is shorter than they are."""
     broken, pos, f, k, drop = _broken_at(seekable, "target")
-    b = Decoder(broken, device="cpu")
+    b = Decoder(broken, **BACKENDS[backend])
     b.seek(pos)
     got = b.read(32768)
-    eager = Decoder(broken, device="cpu")._native
-    eager.restart(int(eager.index()[0][f - k]))
-    eager.reset_state()
-    pcm = eager.decode_frames(k + 1, b.bytes_per_frame()) + eager.decode_more()
+    pcm, eager = _decoded_once(broken, backend, f - k, k + 1)
+    pcm += eager.decode_more()  # the readahead after them
     assert got == pcm[drop:drop + 32768] and len(got) == 32768
 
 
@@ -556,8 +604,8 @@ def test_dirty_staging_gives_the_linear_bytes(seekable):
 
 def test_staging_and_zero_state_are_reused(seekable):
     """50 seeks and reads ship through the buffers the stream made at its
-    first device call, and every seek points the state at the device's one
-    zero state, which stays zero."""
+    open, and every seek points the state at the device's one zero state,
+    which stays zero."""
     from go_mp3_tpu_torch.decoder import _zero_state
 
     data, linear = seekable
@@ -568,7 +616,7 @@ def test_staging_and_zero_state_are_reused(seekable):
     for pos in rng.integers(0, d.length() - 4, 50):
         pos = int(pos) & ~3
         d.seek(pos)
-        assert d._native._state is zero
+        assert d._native._staging._state is zero
         assert d.read(8192) == linear[pos:pos + 8192]
     assert [t.data_ptr() for t in _staging_tensors(d)] == ptrs
     assert not zero.store.any() and not zero.v_fifo.any()
@@ -595,7 +643,7 @@ def test_checkpoint_and_resume_do_not_alias_the_zero_state(seekable):
     ck = d.checkpoint()
     fresh = Decoder(data, device="cpu")
     fresh.resume(ck)
-    assert fresh._native._state.store is not zero.store
+    assert fresh._native._staging._state.store is not zero.store
     assert fresh.read(32768) == d.read(32768) == linear[pos:pos + 32768]
     fresh.resume(ck)
     assert fresh.read(32768) == linear[pos:pos + 32768]
