@@ -26,6 +26,8 @@ the plain chain on the CPU) with the DSP state kept on `device`.
 from __future__ import annotations
 
 import io
+import os
+import threading
 from typing import BinaryIO
 
 import numpy as np
@@ -81,6 +83,37 @@ def _zero_state(device: torch.device) -> DecodeState:
     if state is None:
         state = _ZERO_STATES[device] = init_state(1, device)
     return state
+
+
+_IDLE_WORKERS: list[native.ParseWorker] = []  # the pool's idle workers, the latest last
+_WORKERS_LOCK = threading.Lock()
+
+
+def _take_worker() -> native.ParseWorker:
+    """A native stream's prefetch worker from the process's one pool: the
+    worker that went idle last (its thread likely still spinning), or a new
+    one (the pool grows to the number of prefetches in flight at once)."""
+    with _WORKERS_LOCK:
+        return _IDLE_WORKERS.pop() if _IDLE_WORKERS else native.ParseWorker()
+
+
+def _give_worker(worker: native.ParseWorker) -> None:
+    """Back to the pool; a worker of the process this one was forked from,
+    which has no thread here, is dropped."""
+    if not worker.foreign():
+        with _WORKERS_LOCK:
+            _IDLE_WORKERS.append(worker)
+
+
+def _forget_workers() -> None:
+    """In a forked child: fork copies no thread, so the pool starts empty
+    (native's own hook, registered first, has marked its workers foreign)."""
+    global _WORKERS_LOCK
+    _WORKERS_LOCK = threading.Lock()
+    _IDLE_WORKERS.clear()
+
+
+os.register_at_fork(after_in_child=_forget_workers)
 
 
 def _indexed(device: torch.device | None) -> torch.device | None:
@@ -335,8 +368,7 @@ class Decoder:
             "backend": self._backend_name,
         }
         if self._native is not None:
-            ck["parser_offset"] = self._native._parser.tell()
-            ck["reservoir"] = self._native._parser.get_reservoir()
+            ck["parser_offset"], ck["reservoir"] = self._native.position()
             ck["dsp"] = self._native._staging.state()
             return ck
         prev = self._frame_reader.prev_bits
@@ -480,17 +512,40 @@ class _NativeStream:
     the exact C++ DSP (dsp "exact"), with the Decoder's frame-oriented
     contract: decode-ahead, restart at a byte offset for seeks.
 
-    Every decode is one path: decode_more parses granules into the rows of
-    the stream's `_staging` (the DSP kind's rows and DSP, chosen at the
-    open: _Staging on the device, _ExactDsp for the C++ DSP) and runs the
-    DSP once on them, in as many rows as granules rounded up to RUN (at
-    most CHUNK). With nothing pending it parses up to CHUNK granules, the
-    readahead. A seek's pend_frames parses the warm-up frames into the
-    rows and decodes nothing; the decode_more after it parses whole frames
-    on into the same rows until they cover the warm-up's bytes and the
-    read's shortfall, and cuts the warm-up's bytes from its PCM. settle()
-    decodes pending rows alone (checkpoint() calls it first); a restart or
-    a state reset drops them."""
+    Every decode is one path: decode_more parses granules into a row set
+    of the stream's `_staging` (the DSP kind's two row sets and DSP, chosen
+    at the open: _Staging on the device, _ExactDsp for the C++ DSP) and
+    runs the DSP once on them, in as many rows as granules rounded up to
+    RUN (at most CHUNK). With nothing pending it takes up to CHUNK
+    granules, the readahead. A seek's pend_frames parses the warm-up
+    frames into the rows and decodes nothing; the decode_more after it
+    parses whole frames on into the same rows until they cover the
+    warm-up's bytes and the read's shortfall (a fold), and cuts the
+    warm-up's bytes from its PCM. settle() decodes pending rows alone
+    (checkpoint() calls it first); a restart or a state reset drops them.
+
+    A readahead starts a prefetch before its device call: a native worker
+    thread of the process's one pool (native.ParseWorker, which runs no
+    Python and so never waits for the interpreter lock that the device
+    call drops and takes around each torch call) parses the next readahead
+    into the other row set, which the last device call released (its
+    blocking copy down ran after its copy up), while this call and the
+    reads that drain its PCM run on the caller's thread. The next readahead
+    joins the worker and takes those rows (a parse error of the prefetch
+    raises there), so the caller parses only the first readahead after an
+    open or a fold. A fold starts no prefetch: the read after a seek joins
+    nothing. Nor does a non-seekable source, whose reader stays on the
+    caller's thread (_StreamingNativeStream). While a prefetch is in flight
+    the parser is the worker's: position() and sample_rate() give what it
+    held when the prefetch started, and a restart waits for nothing: it
+    makes its own parser and leaves the old one to the dropped prefetch,
+    whose row set the next prefetch takes only after closing that parser
+    (NativeParser.close waits for a parse in flight). A state reset leaves
+    a prefetch alone: it parses what the next readahead would, whatever
+    the DSP state. In a process forked from the one that started a
+    prefetch, the worker's thread is the parent's alone: the join parses
+    again on the caller's thread from the offset and reservoir recorded at
+    the start, and the worker never returns to the child's pool."""
 
     CHUNK = 128  # granules per decode, a multiple of RUN
     RUN = 4  # K5's longest run of granules: a decode's rows are a multiple
@@ -502,10 +557,21 @@ class _NativeStream:
             self._staging = _Staging(self.CHUNK, _indexed(device))
         else:
             self._staging = _ExactDsp(self.CHUNK)
+        self._rows = 0  # the row set the caller's thread parses into
+        self._ahead: native.ParseWorker | None = None  # the last prefetch not joined
+        self._mark = None  # (offset, reservoir, sample rate) as the prefetch in flight began
+        self._stale = None  # the parser a restart left to a dropped prefetch
         self._drop_pending()
 
     def sample_rate(self) -> int:
-        return self._parser.sample_rate
+        return self._parser.sample_rate if self._mark is None else self._mark[2]
+
+    def position(self) -> tuple[int, bytes]:
+        """The parser's byte offset and reservoir, less a prefetch in
+        flight: what a checkpoint resumes from."""
+        if self._mark is not None:
+            return self._mark[0], self._mark[1]
+        return self._parser.tell(), self._parser.get_reservoir()
 
     def index(self):
         return native.index_stream(self._data)
@@ -520,7 +586,10 @@ class _NativeStream:
 
     def restart(self, byte_offset: int) -> None:
         self._drop_pending()
-        self._parser.close()
+        if self._mark is None:
+            self._parser.close()
+        else:  # the prefetch in flight parses with it: closed by the next prefetch
+            self._stale, self._mark = self._parser, None
         self._parser = native.NativeParser(self._data, byte_offset)
 
     def _parse(self, into, *rows) -> int:
@@ -529,8 +598,54 @@ class _NativeStream:
         return into(self._parser, *rows)
 
     def _parse_rows(self, lo: int, hi: int) -> int:
+        """Granules the C++ parse wrote to rows [lo, hi) of the caller's set."""
         with spans.span("gomp3.decoder.parse"):
-            return self._staging.parse(self._parse, lo, hi)
+            return self._staging.parse(self._parse, self._rows, lo, hi)
+
+    def _prefetch(self) -> None:
+        """Start the next readahead's parse into the other row set on a
+        worker of the pool, first waiting for a dropped prefetch that may
+        still write that set."""
+        if self._ahead is not None:
+            self._drop_ahead()
+        parser = self._parser
+        self._mark = (parser.tell(), parser.get_reservoir(), parser.sample_rate)
+        worker = self._ahead = _take_worker()
+        self._staging.parse(lambda into, *rows: worker.start(into, parser, *rows),
+                            self._rows ^ 1, 0, self.CHUNK)
+
+    def _join(self) -> int:
+        """The granules the prefetch in flight parsed, its row set now the
+        caller's and its worker back in the pool; its parse error raises
+        here, and its parse time counts in the parse span's totals. In a
+        forked child the parse runs here instead, from where the prefetch
+        started."""
+        worker, self._ahead = self._ahead, None
+        (offset, reservoir, _), self._mark = self._mark, None
+        self._rows ^= 1
+        if worker.foreign():
+            self._parser.close()  # the parent's thread may have cut its parse
+            self._parser = native.NativeParser(self._data, offset)
+            self._parser.set_reservoir(reservoir)
+            return self._parse_rows(0, self.CHUNK)
+        try:
+            with spans.span("gomp3.decoder.prefetch_wait"):
+                n, seconds = worker.join()
+        finally:
+            _give_worker(worker)
+        spans.record("gomp3.decoder.parse", seconds)
+        if n:
+            spans.count("gomp3.decoder.prefetched")
+        return n
+
+    def _drop_ahead(self) -> None:
+        """Wait for a dropped prefetch, its rows and its parse error unread,
+        closing the parser a restart left to it; its worker back in the
+        pool."""
+        worker, self._ahead = self._ahead, None
+        self._stale.close()  # waits for the parse (in a forked child, leaves it)
+        self._stale = None
+        _give_worker(worker)
 
     def _capacity(self, frames: int, gpf: int) -> int:
         """Rows to parse `frames` whole frames of `gpf` granules into, at
@@ -544,7 +659,7 @@ class _NativeStream:
         rows for the next decode, and cut `drop` bytes from the PCM of the
         decodes that follow. Decodes nothing. A parse error in the first
         frame raises here (the C++ parser stops short at a later one, and
-        the next decode parses on from there)."""
+        the next decode parses on from there). Called after a restart."""
         gpf = max(1, bytes_per_frame // GRANULE_BYTES)
         n = self._parse_rows(0, self._capacity(n_frames, gpf))
         self._pending = (n, gpf) if n else None
@@ -554,19 +669,26 @@ class _NativeStream:
         """The next decode's PCM; None at the end of the audio. With rows
         pending from a seek: those rows and whole frames after them until
         they cover the bytes to cut and `shortfall` more (a seek fold);
-        else the readahead."""
-        if self._pending is None:
-            n, cap = 0, self.CHUNK
-        else:
+        else the readahead, the prefetch's rows where one is in flight,
+        which starts the next prefetch."""
+        readahead = self._pending is None
+        if not readahead:
             (n, gpf), self._pending = self._pending, None
             granules = -(-(self._drop + shortfall) // GRANULE_BYTES)
             cap = self._capacity(-(-granules // gpf), gpf)
             spans.count("gomp3.decoder.seek_folds")
-        if cap - n >= 2:  # fewer free rows parse nothing
-            n += self._parse_rows(n, cap)
+            if cap - n >= 2:  # fewer free rows parse nothing
+                n += self._parse_rows(n, cap)
+        elif self._mark is not None:
+            n = self._join()
+        else:
+            n = self._parse_rows(0, self.CHUNK)
         if n == 0:
             return None
-        pcm = self._staging.decode(n, -(-n // self.RUN) * self.RUN)
+        rows = self._rows
+        if readahead:
+            self._prefetch()
+        pcm = self._staging.decode(rows, n, -(-n // self.RUN) * self.RUN)
         if not self._drop:
             return pcm
         cut = min(self._drop, len(pcm))  # a warm-up past this decode's PCM cuts on
@@ -590,18 +712,19 @@ class _NativeStream:
 class _Staging:
     """A native stream's device DSP: the buffers of its device calls, made
     once at the stream's open and reused by every call, the chain call and
-    the DSP state. One host block that the C++ parser writes and the PCM
-    comes back to, and its twin on the device. On CUDA the host block is
-    pinned, taken from torch's caching host allocator, so a stream opened
-    after another one closed reuses its block; on the CPU it is plain
-    memory and the copies are plain copies, the same path. A state reset
-    points the state at the device's shared zero state.
+    the DSP state. One host block: two row sets that the C++ parser writes
+    (a prefetch parses into one while a call ships the other) and the PCM
+    that comes back; and one device twin of a row set and the PCM. On CUDA
+    the host block is pinned, taken from torch's caching host allocator, so
+    a stream opened after another one closed reuses its block; on the CPU
+    it is plain memory and the copies are plain copies, the same path. A
+    state reset points the state at the device's shared zero state.
 
-    The block, in int16 words: `valid` (int32) and padding to 16 bytes,
-    then side [rows, SIDE_WIDTH], spectra [rows, 1152] and the PCM
-    [rows * 576, 2]. A call of r rows copies the block up to spectra row
-    r in one copy: `valid`, every side row (rows past r unread) and r
-    rows of spectra."""
+    A row set, in int16 words: `valid` (int32) and padding to 16 bytes,
+    then side [rows, SIDE_WIDTH] and spectra [rows, 1152]; after the two
+    sets, the PCM [rows * 576, 2]. The device block is a row set and the
+    PCM. A call of r rows copies its set up to spectra row r in one copy:
+    `valid`, every side row (rows past r unread) and r rows of spectra."""
 
     HEAD = 8  # words before the side rows: `valid` and padding
 
@@ -609,18 +732,20 @@ class _Staging:
         self._device = device
         self.pinned = device.type == "cuda"
         self._spectra0 = self.HEAD + rows * SIDE_WIDTH
-        self._pcm0 = self._spectra0 + rows * 1152
-        words = self._pcm0 + rows * SAMPLES_PER_GR * 2
-        self._host = torch.empty(words, dtype=torch.int16, pin_memory=self.pinned)
-        self._dev = torch.empty(words, dtype=torch.int16, device=device)
+        self._pcm0 = self._spectra0 + rows * 1152  # a row set's words
+        pcm = rows * SAMPLES_PER_GR * 2
+        self._host = torch.empty(2 * self._pcm0 + pcm, dtype=torch.int16,
+                                 pin_memory=self.pinned)
+        self._dev = torch.empty(self._pcm0 + pcm, dtype=torch.int16, device=device)
         block = self._host.numpy()
-        self.side_np = block[self.HEAD:self._spectra0].reshape(rows, SIDE_WIDTH)
-        self.spectra_np = block[self._spectra0:self._pcm0].reshape(rows, 1152)
-        self._valid_np = block[:2].view(np.int32)
-        self._pcm_np = block[self._pcm0:]
-        self._pcm = self._host[self._pcm0:]
+        sets = [block[i * self._pcm0:(i + 1) * self._pcm0] for i in range(2)]
+        self.side_np = [s[self.HEAD:self._spectra0].reshape(rows, SIDE_WIDTH) for s in sets]
+        self.spectra_np = [s[self._spectra0:].reshape(rows, 1152) for s in sets]
+        self._valid_np = [s[:2].view(np.int32) for s in sets]
+        self._pcm_np = block[2 * self._pcm0:]
+        self._pcm = self._host[2 * self._pcm0:]
         self._valid = self._dev[:2].view(torch.int32)
-        self._calls: dict[int, tuple] = {}  # rows -> the views a call of as many takes
+        self._calls: dict[tuple, tuple] = {}  # (set, rows) -> the views a call takes
         self.reset()
 
     def reset(self) -> None:
@@ -634,39 +759,40 @@ class _Staging:
             np.asarray(store)[None], np.asarray(v_fifo)[None], self._device
         )
 
-    def parse(self, parse, lo: int, hi: int) -> int:
-        """Granules the packed C++ parse wrote to host rows [lo, hi)."""
+    def parse(self, parse, which: int, lo: int, hi: int) -> int:
+        """Granules the packed C++ parse wrote to rows [lo, hi) of set `which`."""
         return parse(native.NativeParser.parse_packed_into,
-                     self.spectra_np[lo:hi], self.side_np[lo:hi])
+                     self.spectra_np[which][lo:hi], self.side_np[which][lo:hi])
 
-    def _views(self, rows: int) -> tuple:
-        v = self._calls.get(rows)
+    def _views(self, which: int, rows: int) -> tuple:
+        v = self._calls.get((which, rows))
         if v is None:
             up = self._spectra0 + rows * 1152
-            d = self._dev
-            v = self._calls[rows] = (
-                d[:up], self._host[:up],
+            d, h = self._dev, which * self._pcm0
+            v = self._calls[which, rows] = (
+                d[:up], self._host[h:h + up],
                 (d[self._spectra0:up].view(1, rows, 1152),
                  d[self.HEAD:self.HEAD + rows * SIDE_WIDTH].view(1, rows, SIDE_WIDTH)),
                 d[self._pcm0:self._pcm0 + rows * SAMPLES_PER_GR * 2].view(
                     1, rows * SAMPLES_PER_GR, 2))
         return v
 
-    def decode(self, n: int, rows: int) -> bytes:
-        """One device call over the first `rows` host rows, n of them
-        granules: their PCM. Rows [n, rows) are cleared (`valid` masks
+    def decode(self, which: int, n: int, rows: int) -> bytes:
+        """One device call over the first `rows` rows of set `which`, n of
+        them granules: their PCM. Rows [n, rows) are cleared (`valid` masks
         them; the parser wrote rows [0, n) whole); then valid = n and the
         rows go up in one copy (async on CUDA), the chain writes the PCM
         into the device block, and the PCM comes down into the host block
         in one blocking copy_, which into pinned memory is one async copy
         on the current stream and one synchronize of it, both inside
-        torch. That wait also frees the host rows: the copy up has run
-        when it returns, so the next parse may write them."""
+        torch. That wait also frees the set: the copy up has run when it
+        returns, so the next parse into it, the caller's or a prefetch's,
+        may write it."""
         with spans.span("gomp3.decoder.h2d"):
-            self.spectra_np[n:rows] = 0
-            self.side_np[n:rows] = 0
-            self._valid_np[0] = n
-            dst, src, packed, out = self._views(rows)
+            self.spectra_np[which][n:rows] = 0
+            self.side_np[which][n:rows] = 0
+            self._valid_np[which][0] = n
+            dst, src, packed, out = self._views(which, rows)
             dst.copy_(src, non_blocking=True)
         with spans.span("gomp3.decoder.launch"):
             pcm, self._state = decode_chunk(packed, self._state, self._valid, out)
@@ -682,18 +808,20 @@ class _Staging:
 
 class _ExactDsp:
     """A native stream's exact DSP: native.NativeDsp, which replicates the
-    reference decoder's float32 operation order, and the four row arrays
-    the C++ parser writes for it. A parse zeroes the rows it parses into:
-    only the packed parse is known to write every word of a granule."""
+    reference decoder's float32 operation order, and two sets of the four
+    row arrays the C++ parser writes for it (a prefetch parses into one
+    while the DSP reads the other). A parse zeroes the rows it parses
+    into: only the packed parse is known to write every word of a
+    granule."""
 
     def __init__(self, rows: int):
         self._dsp = native.NativeDsp()
-        self._rows = (
+        self._rows = [(
             np.zeros((rows, 2, 576), np.int16),
             np.zeros((rows, 2, 22), np.int32),
             np.zeros((rows, 2, 39), np.int32),
             np.zeros((rows, native.META_WIDTH), np.int32),
-        )
+        ) for _ in range(2)]
 
     def reset(self) -> None:
         self._dsp.reset()
@@ -704,23 +832,25 @@ class _ExactDsp:
     def set_state(self, store, v_fifo) -> None:
         self._dsp.set_state(store, v_fifo)
 
-    def parse(self, parse, lo: int, hi: int) -> int:
-        """Granules the C++ parse wrote to rows [lo, hi), zeroed first."""
-        rows = [a[lo:hi] for a in self._rows]
+    def parse(self, parse, which: int, lo: int, hi: int) -> int:
+        """Granules the C++ parse wrote to rows [lo, hi) of set `which`,
+        zeroed first."""
+        rows = [a[lo:hi] for a in self._rows[which]]
         for a in rows:
             a.fill(0)
         return parse(native.NativeParser.parse_into, *rows)
 
-    def decode(self, n: int, rows: int) -> bytes:
-        """The PCM of the first n rows' granules (`rows` is the device's
-        call size; the C++ DSP takes the granules alone)."""
-        return self._dsp.decode(*(a[:n] for a in self._rows)).tobytes()
+    def decode(self, which: int, n: int, rows: int) -> bytes:
+        """The PCM of the first n rows' granules of set `which` (`rows` is
+        the device's call size; the C++ DSP takes the granules alone)."""
+        return self._dsp.decode(*(a[:n] for a in self._rows[which])).tobytes()
 
 
 class _StreamingNativeStream(_NativeStream):
     """The native path for sources that cannot be read whole (pipes,
     sockets, unbounded streams): the C++ parser owns a compacting buffer
-    fed on demand, so memory stays bounded. No length, no seek."""
+    fed on demand, so memory stays bounded. No length, no seek, and no
+    prefetch: the reader is read on the caller's thread alone."""
 
     FEED = 1 << 16  # bytes per reader.read()
 
@@ -737,6 +867,9 @@ class _StreamingNativeStream(_NativeStream):
             chunk = self._reader.read(self.FEED)
             self._parser.feed(chunk or b"", eof=not chunk)
         return n
+
+    def _prefetch(self) -> None:
+        pass
 
     def index(self):
         return None  # not materializable: no length

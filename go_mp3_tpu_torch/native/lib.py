@@ -6,7 +6,7 @@ back gracefully: `available()` is False when the library cannot be built,
 and callers keep using the pure-Python parser.
 
 The library is built here at first use, with g++, from mp3parse.cpp,
-mp3dsp.cpp and synth_window_data.cpp, into
+mp3dsp.cpp, synth_window_data.cpp and prefetch.cpp (ParseWorker), into
 build/go_mp3_tpu_torch/native-<hash>/ at the repo root. The hash covers the
 sources, the flags and the host's CPU (the build is -march=native), so a
 library built on another machine is never loaded. It is loaded
@@ -35,13 +35,13 @@ from ..consts import (  # single source
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_ROOT = _DIR.parents[1] / "build" / "go_mp3_tpu_torch"
-_SOURCES = ("mp3parse.cpp", "mp3dsp.cpp", "synth_window_data.cpp")
+_SOURCES = ("mp3parse.cpp", "mp3dsp.cpp", "synth_window_data.cpp", "prefetch.cpp")
 _HEADERS = ("huffman_data.h",)
 # -ffp-contract=off: the exact DSP replicates the Go reference's float32
 # arithmetic, and Go's amd64 backend never contracts mul+add into FMA;
 # letting g++ fuse changes ~200 samples a file by 1 LSB.
 _FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-fPIC",
-          "-shared", "-Wall", "-Wextra"]
+          "-shared", "-pthread", "-Wall", "-Wextra"]
 
 # packed sidecar layout (must match mp3parse.cpp gmp_parse_packed emit):
 # one int16[SIDE_WIDTH] word vector per granule carrying all metadata +
@@ -194,6 +194,13 @@ def _load():
         ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int16),
     ]
+    lib.gmp_worker_create.restype = ctypes.c_void_p
+    lib.gmp_worker_create.argtypes = []
+    lib.gmp_worker_start.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.gmp_worker_join.restype = ctypes.c_int
+    lib.gmp_worker_join.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.gmp_worker_destroy.argtypes = [ctypes.c_void_p]
     lib.gmp_pos.restype = ctypes.c_int64
     lib.gmp_pos.argtypes = [ctypes.c_void_p]
     lib.gmp_get_reservoir.restype = ctypes.c_int
@@ -258,6 +265,35 @@ def _check_array(name: str, a, shape, dtype) -> None:
         raise ValueError(f"{name}: not C-contiguous")
 
 
+def _full_rows(spectra, sfl, sfs, meta) -> int:
+    """The rows of parse_into's arrays, checked."""
+    _check_array("spectra", spectra, (None, 2, 576), np.int16)
+    cap = spectra.shape[0]
+    _check_array("sfl", sfl, (cap, 2, 22), np.int32)
+    _check_array("sfs", sfs, (cap, 2, 39), np.int32)
+    _check_array("meta", meta, (cap, META_WIDTH), np.int32)
+    return cap
+
+
+def _packed_rows(spectra, side) -> int:
+    """The rows of parse_packed_into's arrays, checked."""
+    _check_array("spectra", spectra, (None, 1152), np.int16)
+    cap = spectra.shape[0]
+    _check_array("side", side, (cap, SIDE_WIDTH), np.int16)
+    return cap
+
+
+_forks = 0  # forks between the process that loaded this module and this one
+
+
+def _forked() -> None:
+    global _forks
+    _forks += 1
+
+
+os.register_at_fork(after_in_child=_forked)
+
+
 class NativeParser:
     """Streaming granule parser over an in-memory MP3 byte buffer.
 
@@ -283,7 +319,7 @@ class NativeParser:
     def get_reservoir(self) -> bytes:
         buf = (ctypes.c_uint8 * 2048)()
         n = self._lib.gmp_get_reservoir(self._p, buf, 2048)
-        return bytes(buf[:n])
+        return ctypes.string_at(buf, n)
 
     def set_reservoir(self, data: bytes) -> None:
         buf = (ctypes.c_uint8 * max(len(data), 1)).from_buffer_copy(
@@ -291,7 +327,19 @@ class NativeParser:
         )
         self._lib.gmp_set_reservoir(self._p, buf, len(data))
 
+    _flight = None  # (worker, _forks then): a ParseWorker's parse of it in flight
+
     def close(self) -> None:
+        """Free the parser, first waiting for a ParseWorker's parse of it in
+        flight. In a process forked while one was, that parse may have
+        been cut anywhere: the parser is left unfreed."""
+        if self._flight is not None:
+            worker, forks = self._flight
+            if forks == _forks:
+                self._lib.gmp_worker_join(worker, ctypes.byref(ctypes.c_int64()))
+            else:
+                self._p = None
+            self._flight = None
         if self._p:
             self._lib.gmp_destroy(self._p)
             self._p = None
@@ -316,11 +364,7 @@ class NativeParser:
         """Parse granules directly into caller-provided C-contiguous arrays
         (shapes [cap,2,576], [cap,2,22], [cap,2,39], [cap,24], int32).
         Returns the number of granules produced (0 = end of audio)."""
-        _check_array("spectra", spectra, (None, 2, 576), np.int16)
-        cap = spectra.shape[0]
-        _check_array("sfl", sfl, (cap, 2, 22), np.int32)
-        _check_array("sfs", sfs, (cap, 2, 39), np.int32)
-        _check_array("meta", meta, (cap, META_WIDTH), np.int32)
+        cap = _full_rows(spectra, sfl, sfs, meta)
         n = self._lib.gmp_parse(
             self._p, cap, _i16p(spectra), _i32p(sfl), _i32p(sfs), _i32p(meta)
         )
@@ -334,9 +378,7 @@ class NativeParser:
         spectra [cap, 1152] int16 (post-reorder) and side [cap, SIDE_WIDTH]
         int16 (all metadata + scalefactors). Two flat, C-contiguous arrays =
         the cheapest possible H2D transfer. Returns granules produced."""
-        _check_array("spectra", spectra, (None, 1152), np.int16)
-        cap = spectra.shape[0]
-        _check_array("side", side, (cap, SIDE_WIDTH), np.int16)
+        cap = _packed_rows(spectra, side)
         n = self._lib.gmp_parse_packed(self._p, cap, _i16p(spectra), _i16p(side))
         if n < 0:
             err = self._lib.gmp_error(self._p).decode()
@@ -539,6 +581,64 @@ class StreamingNativeParser(NativeParser):
     def tell(self) -> int:
         """Global byte position across all fed chunks."""
         return int(self._lib.gmp_pos(self._p))
+
+
+class ParseWorker:
+    """A native thread that runs one parse at a time off the caller's
+    thread (prefetch.cpp): start() a NativeParser's parse into rows, as
+    parse_into or parse_packed_into would run it, then join() its result.
+    No Python runs on the thread, so it never takes the interpreter lock;
+    the thread and the join spin up to 2 ms before they sleep. The object
+    keeps the parser and the rows of the parse in flight alive until its
+    join, and the parser waits for it before it frees itself; deleted, the
+    worker waits for that parse and ends its thread. Fork copies no
+    thread: in a forked child the worker is foreign(), and it and the
+    parse it had in flight are left as they are."""
+
+    def __init__(self):
+        self._lib = _load()
+        if self._lib is None:
+            raise RuntimeError("libmp3parse.so not available")
+        self._forks = _forks
+        self._w = self._lib.gmp_worker_create()
+        self._ns = ctypes.c_int64()
+        self._job = None  # (parser, rows) of the parse in flight
+
+    def foreign(self) -> bool:
+        """True in a process forked from the one that made the worker: its
+        thread did not follow."""
+        return self._forks != _forks
+
+    def start(self, into, parser: NativeParser, *rows: np.ndarray) -> None:
+        """Start into(parser, *rows) on the thread; `into` is
+        NativeParser.parse_into or NativeParser.parse_packed_into."""
+        if into is NativeParser.parse_packed_into:
+            packed, cap = 1, _packed_rows(*rows)
+        elif into is NativeParser.parse_into:
+            packed, cap = 0, _full_rows(*rows)
+        else:
+            raise ValueError(f"ParseWorker: no native form of {into!r}")
+        self._job = (parser, rows)
+        parser._flight = (self._w, self._forks)
+        ptrs = [a.ctypes.data for a in rows] + [None] * (4 - len(rows))
+        self._lib.gmp_worker_start(self._w, parser._p, cap, packed, *ptrs)
+
+    def join(self) -> tuple[int, float]:
+        """(granules, seconds the parse took) of the parse started last: its
+        return value, and its error raised here as it would have raised."""
+        n = self._lib.gmp_worker_join(self._w, ctypes.byref(self._ns))
+        (parser, _), self._job = self._job, None
+        parser._flight = None
+        if n < 0:
+            err = self._lib.gmp_error(parser._p).decode()
+            raise ValueError(f"mp3: native parse failed: {err}")
+        return n, self._ns.value / 1e9
+
+    def __del__(self):
+        if getattr(self, "_w", None) and self._forks == _forks:
+            self._lib.gmp_worker_destroy(self._w)  # waits for a parse in flight
+            if self._job is not None:
+                self._job[0]._flight = None
 
 
 class NativeDsp:

@@ -34,9 +34,13 @@ the root's own time):
    seeks through seek_to_time, seek_to_sample and skip), Decoder.read;
    inside them, on the native path, gomp3.decoder.parse (a C++ parse
    into the stream's rows: a seek's warm-up frames, or a decode's
-   granules), and in a device decode .h2d (the rows' copies to the card,
-   enqueued), .launch (the chain's launch), .d2h (the PCM's copy back,
-   enqueued, and the one wait for it and the chain).
+   granules; a prefetch's parse runs on a native worker thread, outside
+   every root, and adds to the totals through record() when the caller
+   joins it, with no trace event), .prefetch_wait (the caller blocked
+   joining that worker: the part of the prefetch's parse that the overlap
+   did not hide), and in a device decode .h2d (the rows' copies to the
+   card, enqueued), .launch (the chain's launch), .d2h (the PCM's copy
+   back, enqueued, and the one wait for it and the chain).
 Counters:
  - gomp3.corpus.reruns: whole decode_corpus_fast runs made again (a lane
    classed mono met a stereo granule; int8 tails overflowed to int16);
@@ -55,7 +59,9 @@ Counters:
    carried a seek's warm-up frames with the granules of the read after
    it; gomp3.decoder.pinned_calls: device decodes whose copies went
    through the stream's pinned staging (every one on CUDA, none on the
-   CPU).
+   CPU); gomp3.decoder.prefetched: decodes whose granules a prefetch
+   parsed (every readahead but the first after an open or a seek's fold,
+   on a seekable source).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ try:
 except ImportError:  # an older torch
     from torch.profiler import record_function as _Record
 
-__all__ = ["count", "enabled", "reset", "span", "timed", "totals"]
+__all__ = ["count", "enabled", "record", "reset", "span", "timed", "totals"]
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _lock = threading.Lock()
@@ -159,6 +165,18 @@ def timed(name: str) -> _Span:
     """As span(), but always timed on the host clock (`.seconds` after it
     closed), for a caller that needs the time with or without a profiler."""
     return _Span(name)
+
+
+def record(name: str, seconds: float) -> None:
+    """Add one span of `seconds`, timed on a thread that runs no Python (a
+    native worker's), to the totals while a profiler runs: all of its time
+    its own, no part of a span open here, and no event of the trace."""
+    if _profiler_enabled() or _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            row = _spans.setdefault(name, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += seconds
+            row[2] += seconds
 
 
 def count(name: str, n: int = 1) -> None:

@@ -5,8 +5,11 @@ checkpoints; its three parse paths (C++ whole-buffer, C++ streaming,
 pure Python) against each other, byte for byte; GaplessDecoder; and the
 public surface against go_mp3_tpu's."""
 
+import contextlib
 import inspect
 import io
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -648,3 +651,426 @@ def test_checkpoint_and_resume_do_not_alias_the_zero_state(seekable):
     fresh.resume(ck)
     assert fresh.read(32768) == linear[pos:pos + 32768]
     assert not zero.store.any() and not zero.v_fifo.any()
+
+
+# -- the readahead prefetch: the next readahead parsed on a worker thread
+
+
+@pytest.fixture(scope="module")
+def references(seekable):
+    """backend -> (a linear decode with no prefetch: a pipe source, fed
+    64 KiB at a time; JAX's Decoder's read_all on the same backend)."""
+    data, _ = seekable
+    return {backend: (Decoder(NonSeekable(data, 1 << 16), **kw).read_all(),
+                      JaxDecoder(data, backend=backend).read_all())
+            for backend, kw in BACKENDS.items()}
+
+
+@pytest.fixture
+def joins(monkeypatch):
+    """The granules of every prefetch the caller joined, in order."""
+    from go_mp3_tpu_torch.decoder import _NativeStream
+
+    got, join = [], _NativeStream._join
+
+    def counted(self):
+        got.append(join(self))
+        return got[-1]
+
+    monkeypatch.setattr(_NativeStream, "_join", counted)
+    return got
+
+
+@pytest.fixture
+def held(monkeypatch):
+    """(release, joined): every native stream's prefetch held in flight on
+    a stand-in worker that parses at once on the caller's thread (the
+    parser past the rows it parsed) and whose join waits for `release`,
+    setting `joined` first; released at the test's end."""
+    from go_mp3_tpu_torch import decoder
+
+    release, joined = threading.Event(), threading.Event()
+
+    class Held:
+        def start(self, into, parser, *rows):
+            self.n = into(parser, *rows)
+
+        def join(self):
+            joined.set()
+            assert release.wait(60), "a join waited for a held prefetch"
+            return self.n, 0.0
+
+        def foreign(self):
+            return False
+
+    monkeypatch.setattr(decoder, "_take_worker", Held)
+    monkeypatch.setattr(decoder, "_give_worker", lambda worker: None)
+    yield release, joined
+    release.set()
+
+
+@contextlib.contextmanager
+def _serial():
+    """Native streams that start no prefetch: every parse on the caller's
+    thread, as a stream decoded before prefetching."""
+    from go_mp3_tpu_torch.decoder import _NativeStream
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(_NativeStream, "_prefetch", lambda self: None)
+        yield
+
+
+@pytest.mark.parametrize("size", [1, 517, 32768, 1 << 20])
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_whole_reads_across_prefetches(seekable, references, joins, backend, size):
+    """A track read whole in reads of `size` bytes, across every readahead
+    boundary: the linear decode's bytes, every readahead but the open's
+    parsed by a prefetch and joined, the last join the end of the audio;
+    JAX's exact Decoder's bytes on the exact backend, and ISO full against
+    JAX's device Decoder on the device backend (the plain chain's float
+    order is the port's own)."""
+    data, _ = seekable
+    linear, jax = references[backend]
+    d = Decoder(data, **BACKENDS[backend])
+    chunks = []
+    while c := d.read(size):
+        chunks.append(c)
+    pcm = b"".join(chunks)
+    assert all(len(c) == size for c in chunks[:-1])
+    assert pcm == linear
+    if backend == "exact":
+        assert pcm == jax
+    else:
+        _assert_compliant(pcm, jax)
+    assert len(joins) >= 2 and joins[-1] == 0 and all(joins[:-1])
+    first = (64 if d.bytes_per_frame() == 2 * GRANULE else 127) * (d.bytes_per_frame() // GRANULE)
+    assert (first + sum(joins)) * GRANULE == len(pcm)
+
+
+def _checkpoints_equal(a: dict, b: dict) -> None:
+    assert set(a) == set(b)
+    for key in a:
+        if key == "dsp":
+            assert a[key][0] == b[key][0]
+            for x, y in zip(a[key][1:], b[key][1:]):
+                np.testing.assert_array_equal(x, y)
+        else:
+            assert a[key] == b[key], key
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_checkpoint_seek_resume_with_prefetch_in_flight(seekable, references, held, backend):
+    """With the open's prefetch held in flight, its parser past the rows it
+    parsed: checkpoint() is the one a stream with no prefetch gives, field
+    by field; a resume on another stream whose own prefetch is held, and a
+    seek with its read, join neither; once released, every read is the
+    linear decode's."""
+    release, joined = held
+    data, _ = seekable
+    linear = references[backend][0]
+    d = Decoder(data, **BACKENDS[backend])
+    n = 5 * 4608 + 4 * 77  # inside the open's readahead: no join
+    assert d.read(n) == linear[:n]
+    ck = d.checkpoint()
+    with _serial():
+        plain = Decoder(data, **BACKENDS[backend])
+        plain.read(n)
+        _checkpoints_equal(ck, plain.checkpoint())
+        assert d._native._parser.tell() > ck["parser_offset"]  # the prefetch parsed on
+
+    e = Decoder(data, **BACKENDS[backend])
+    e.resume(ck)
+    _checkpoints_equal(e.checkpoint(), ck)
+    pos = _positions(d)["middle"]
+    d.seek(pos)
+    assert d.read(32768) == linear[pos:pos + 32768]
+    assert not joined.is_set()
+
+    release.set()
+    assert e.read(-1) == linear[n:]
+    assert d.read(-1) == linear[pos + 32768:]
+    assert joined.is_set()
+
+
+def _reads_and_errors(d: Decoder, size: int) -> list:
+    """Each read's PCM, or the parse error it raised, to the end."""
+    out = []
+    while len(out) < 1000:
+        try:
+            c = d.read(size)
+        except ValueError as err:
+            out.append(("error", str(err)))
+            continue
+        if not c:
+            return out
+        out.append(c)
+    raise AssertionError("no end")
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+@pytest.mark.parametrize("where", ["second_readahead", "third_readahead", "inside"])
+def test_corrupt_frame_past_the_first_readahead(seekable, joins, backend, where):
+    """A hard parse error in a frame a prefetch parses: the error comes out
+    of the read that raised it without prefetching, and every read before
+    and after it gives that read's bytes. A readahead's first frame raises
+    (second_readahead: the open's prefetch; third_readahead: a read's);
+    inside a readahead, the C++ parser stops short at it and skips it."""
+    data, _ = seekable
+    d = Decoder(data, **BACKENDS[backend])
+    gpf = d.bytes_per_frame() // GRANULE
+    per_decode = 64 if gpf == 2 else 127  # frames a readahead parses
+    frame = {"second_readahead": per_decode, "third_readahead": 2 * per_decode,
+             "inside": per_decode + per_decode // 2}[where]
+    starts = d._native.index()[0]
+    if frame >= len(starts):
+        pytest.skip("the stream has fewer readaheads")
+    broken = _corrupt_big_values(data, int(starts[frame]))
+    got = _reads_and_errors(Decoder(broken, **BACKENDS[backend]), 32768)
+    with _serial():
+        want = _reads_and_errors(Decoder(broken, **BACKENDS[backend]), 32768)
+    assert got == want
+    errors = [r for r in got if isinstance(r, tuple)]
+    assert len(errors) == (where != "inside")
+    assert all("native parse failed" in e[1] for e in errors)
+    assert joins  # the prefetch ran
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_pipe_source_never_prefetches(seekable, joins, backend):
+    """A non-seekable source: every parse, and so every read of its
+    reader, on the caller's thread; no prefetch started or joined."""
+    data, _ = seekable
+    linear = _linear(seekable, backend)
+    joins.clear()
+    caller, readers = threading.get_ident(), set()
+
+    class Pipe(NonSeekable):
+        def read(self, n=-1):
+            readers.add(threading.get_ident())
+            return super().read(n)
+
+    d = Decoder(Pipe(data, 517), **BACKENDS[backend])
+    out = []
+    while c := d.read(32768):
+        out.append(c)
+        assert d._native._ahead is None and d._native._mark is None
+    assert b"".join(out) == linear
+    assert readers == {caller} and joins == []
+
+
+def test_streams_on_many_threads(seekable):
+    """16 Decoders read on 16 threads at once (more threads than cores,
+    the interpreter switching every 10 us), their prefetches sharing one
+    pool: each reads the linear decode's bytes."""
+    data, _ = seekable
+    linear = Decoder(data, backend="exact").read_all()
+    got: dict = {}
+
+    def work(i):
+        d = Decoder(data, backend="exact")
+        size, out = 517 + 4000 * i, []
+        while c := d.read(size):
+            out.append(c)
+        got[i] = b"".join(out)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert got == dict.fromkeys(range(16), linear)
+
+
+@pytest.mark.parametrize("where", ["clean", "corrupt"])
+@pytest.mark.parametrize("into", ["parse_packed_into", "parse_into"])
+def test_parse_worker_is_the_parse(seekable, into, where):
+    """native.ParseWorker: a parse started on its native thread and joined
+    gives what the same parse on the caller's thread gives, readahead by
+    readahead to the end: the granules, every word of the rows, and the
+    parser's offset and reservoir; a hard parse error at a readahead's
+    first frame raises from the join with the parse's own message."""
+    from go_mp3_tpu_torch.consts import SIDE_WIDTH
+    from go_mp3_tpu_torch.native import lib as native
+
+    data, _ = seekable
+    d = Decoder(data, device="cpu")
+    if where == "corrupt":
+        per_decode = 64 if d.bytes_per_frame() == 2 * GRANULE else 127
+        data = _corrupt_big_values(data, int(d._native.index()[0][per_decode]))
+    if into == "parse_packed_into":
+        shapes = [((128, 1152), np.int16), ((128, SIDE_WIDTH), np.int16)]
+    else:
+        shapes = [((128, 2, 576), np.int16), ((128, 2, 22), np.int32),
+                  ((128, 2, 39), np.int32), ((128, native.META_WIDTH), np.int32)]
+    method = getattr(native.NativeParser, into)
+    here, there = native.NativeParser(data), native.NativeParser(data)
+    worker, results = native.ParseWorker(), []
+    for _ in range(100):
+        mine = [np.zeros(shape, dtype) for shape, dtype in shapes]
+        theirs = [np.full(shape, 0x5A, dtype) for shape, dtype in shapes]
+        worker.start(method, there, *theirs)
+        try:
+            want = method(here, *mine)
+        except ValueError as err:
+            with pytest.raises(ValueError) as got:
+                worker.join()
+            assert str(got.value) == str(err)
+            results.append("error")
+            continue
+        n, seconds = worker.join()
+        assert n == want and seconds >= 0
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(a[:n], b[:n])
+        assert (there.tell(), there.get_reservoir()) == (here.tell(), here.get_reservoir())
+        results.append(n)
+        if n == 0:
+            break
+    assert results[-1] == 0 and len(results) >= 3
+    assert results.count("error") == (where == "corrupt")
+
+
+def _in_child(child, timeout: float = 120) -> None:
+    """Run child() in a forked child, which must return True within
+    `timeout` seconds: a child that hangs is killed and fails the test."""
+    import os
+    import time
+
+    pid = os.fork()
+    if pid == 0:
+        ok = False
+        try:
+            ok = child()
+        finally:
+            os._exit(0 if ok else 1)
+    deadline = time.monotonic() + timeout
+    while (done := os.waitpid(pid, os.WNOHANG))[0] == 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if done[0] == 0:
+        os.kill(pid, 9)
+        os.waitpid(pid, 0)
+        pytest.fail("the forked child hung")
+    assert os.waitstatus_to_exitcode(done[1]) == 0
+
+
+def test_forked_child_prefetches_on_its_own_workers(seekable):
+    """A child forked after the parent's streams filled the worker pool
+    (fork copies no thread) reads the linear decode's bytes through a
+    Decoder it opens, prefetching on workers of its own."""
+    from go_mp3_tpu_torch import decoder
+
+    data, _ = seekable
+    linear = Decoder(data, backend="exact").read_all()
+    assert decoder._IDLE_WORKERS  # the parent's pool holds a worker
+
+    def child():
+        d = Decoder(data, backend="exact")
+        return b"".join(iter(lambda: d.read(32768), b"")) == linear
+
+    _in_child(child)
+
+
+@pytest.mark.parametrize("readaheads", [0, 1])
+def test_decoder_opened_before_a_fork_reads_on_in_the_child(seekable, references,
+                                                             readaheads):
+    """An exact Decoder opened in the parent and read into its readahead
+    after `readaheads` more, its prefetch started there on the parent's
+    worker thread: the forked child reads it to the end, seeks it and
+    checkpoints it, with the bytes and the checkpoint of a stream read
+    only in the child; the parent then reads it to the end as well. The
+    child parses what the parent's prefetch would have, from where it
+    started (the same path whether that parse had ended before the fork
+    or not). The device backend's chain on the CPU runs on torch's own
+    thread pool, which a forked child cannot use, with or without a
+    prefetch."""
+    data, _ = seekable
+    linear = references["exact"][0]
+    d = Decoder(data, **BACKENDS["exact"])
+    per_decode = 128 if d.bytes_per_frame() == 2 * GRANULE else 127
+    read = readaheads * per_decode * GRANULE + 517
+    assert d.read(read) == linear[:read]
+    assert d._native._mark is not None  # a prefetch in flight, not joined
+    mid = _positions(d)["middle"]
+
+    def child():
+        assert d._native._ahead.foreign()
+        ck = d.checkpoint()
+        rest = b"".join(iter(lambda: d.read(32768), b""))
+        d.seek(mid)
+        seeked = d.read(70000)
+        e = Decoder(data, **BACKENDS["exact"])
+        e.resume(ck)
+        resumed = e.read_all()
+        with _serial():
+            plain = Decoder(data, **BACKENDS["exact"])
+            plain.read(read)
+            _checkpoints_equal(ck, plain.checkpoint())
+        return (rest == linear[read:] and seeked == linear[mid:mid + 70000]
+                and resumed == linear[read:])
+
+    _in_child(child)
+    assert b"".join(iter(lambda: d.read(32768), b"")) == linear[read:]
+
+
+def test_deleted_parse_worker_ends_its_thread(seekable):
+    """A ParseWorker deleted with a parse in flight waits for it and ends
+    its native thread (so a stream dropped mid-prefetch leaks no thread)."""
+    import os
+    import time
+
+    from go_mp3_tpu_torch.consts import SIDE_WIDTH
+    from go_mp3_tpu_torch.native import lib as native
+
+    def threads() -> set:
+        return set(os.listdir("/proc/self/task"))
+
+    data, _ = seekable
+    before = threads()  # other streams' threads may end meanwhile
+    workers = [native.ParseWorker() for _ in range(8)]
+    ours = threads() - before
+    rows = [(np.zeros((128, 1152), np.int16), np.zeros((128, SIDE_WIDTH), np.int16))
+            for _ in workers]
+    parsers = [native.NativeParser(data) for _ in workers]
+    for worker, parser, r in zip(workers, parsers, rows):
+        worker.start(native.NativeParser.parse_packed_into, parser, *r)
+    assert len(ours) >= 8
+    del workers, worker
+    deadline = time.monotonic() + 30
+    while ours & threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not ours & threads()
+    assert all(r[1][0].any() for r in rows)  # each parse ran to its end
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_parser_closed_with_a_parse_in_flight_waits_for_it(seekable, backend):
+    """A parser closed while a ParseWorker parses it waits for that parse
+    (its rows written whole) before it frees itself; so does a Decoder
+    dropped mid-prefetch inside a reference cycle, which the cyclic
+    collector finalizes in any order."""
+    import gc
+
+    from go_mp3_tpu_torch.consts import SIDE_WIDTH
+    from go_mp3_tpu_torch.native import lib as native
+
+    data, _ = seekable
+    for _ in range(5):
+        worker, parser = native.ParseWorker(), native.NativeParser(data)
+        rows = np.zeros((128, 1152), np.int16), np.zeros((128, SIDE_WIDTH), np.int16)
+        worker.start(native.NativeParser.parse_packed_into, parser, *rows)
+        parser.close()
+        assert parser._p is None and parser._flight is None
+        assert rows[1][120].any()  # the parse ran past its 120th granule
+        del worker
+
+        d = Decoder(data, **BACKENDS[backend])
+        d.read(517)
+        assert d._native._mark is not None
+        d.cycle = d
+        del d
+        gc.collect()

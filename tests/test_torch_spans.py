@@ -13,6 +13,7 @@ import math
 import threading
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,7 +32,7 @@ CORPUS = ("gomp3.corpus.call", "gomp3.corpus.parse", "gomp3.corpus.pack",
           "gomp3.corpus.emit", "gomp3.corpus.wait")
 DECODER = ("gomp3.decoder.open", "gomp3.decoder.seek", "gomp3.decoder.read",
            "gomp3.decoder.parse", "gomp3.decoder.h2d", "gomp3.decoder.launch",
-           "gomp3.decoder.d2h")
+           "gomp3.decoder.d2h", "gomp3.decoder.prefetch_wait")
 INNER = DECODER[3:]
 
 
@@ -148,12 +149,25 @@ def test_corpus_call_is_its_own_time_and_its_children(lanes, traced):
         assert got[name]["self_s"] == got[name]["s"]
 
 
-def test_decoder_roots_are_their_own_time_and_their_children(track, traced):
+def test_decoder_roots_are_their_own_time_and_their_children(track, traced, monkeypatch):
+    """The roots' own time and the spans nested in them are the roots'
+    time. A prefetch's parse, timed on its native worker thread outside
+    every root, adds to the parse span's totals (spans.record), not to a
+    root."""
+    off_thread, record = [], spans.record
+
+    def recorded(name, seconds):
+        off_thread.append((name, seconds))
+        record(name, seconds)
+
+    monkeypatch.setattr(spans, "record", recorded)
     with traced():
         _decoder_ops(track.data)
     got = spans.totals()["spans"]
+    assert off_thread and {n for n, _ in off_thread} == {"gomp3.decoder.parse"}
+    assert len(off_thread) < got["gomp3.decoder.parse"]["n"]  # the open's parse is the caller's
     roots = [got[n] for n in DECODER[:3]]
-    inner = sum(got[n]["s"] for n in INNER)
+    inner = sum(got[n]["s"] for n in INNER) - sum(s for _, s in off_thread)
     assert sum(r["self_s"] for r in roots) + inner == pytest.approx(
         sum(r["s"] for r in roots), rel=1e-9, abs=1e-12)
     assert got["gomp3.decoder.open"]["n"] == got["gomp3.decoder.seek"]["n"] == 1
@@ -162,7 +176,8 @@ def test_decoder_roots_are_their_own_time_and_their_children(track, traced):
 def test_decoder_counts_its_decodes(track, traced):
     """Read whole from the open: one decode per 128 granules, each
     copying its granules' rows rounded up to 4 (128 but for the last);
-    every granule counted once."""
+    every granule counted once; every decode but the open's served from a
+    prefetch."""
     with traced():
         dec = Decoder(track.data, device="cpu")
         pcm = dec.read(-1)
@@ -174,7 +189,8 @@ def test_decoder_counts_its_decodes(track, traced):
     for name in ("gomp3.decoder.h2d", "gomp3.decoder.launch", "gomp3.decoder.d2h"):
         assert got["spans"][name]["n"] == decodes
     assert got["counts"] == {"gomp3.decoder.granules": granules,
-                             "gomp3.decoder.rows": 128 * (decodes - 1) + -(-last // 4) * 4}
+                             "gomp3.decoder.rows": 128 * (decodes - 1) + -(-last // 4) * 4,
+                             "gomp3.decoder.prefetched": decodes - 1}
 
 
 def test_seek_counts_warmup_frames_and_rows(track, traced):
@@ -203,6 +219,39 @@ def test_seek_counts_warmup_frames_and_rows(track, traced):
     assert got["spans"]["gomp3.decoder.launch"]["n"] == len(times)
     assert got["counts"]["gomp3.decoder.rows"] == sum(rows) < 128 * len(times)
     assert got["spans"]["gomp3.decoder.seek"]["n"] == len(times)
+
+
+@pytest.mark.parametrize("ops", ["whole_reads", "seek_reads"])
+def test_prefetched_counts_readaheads_not_seeks(track, traced, ops):
+    """gomp3.decoder.prefetched: tracks opened and read whole in 32 KiB
+    reads, as player.read's ops, count every decode but each open's, and
+    the caller joins once more a track, at the end of the audio
+    (gomp3.decoder.prefetch_wait); seek_to_time then a 32 KiB read, as
+    player.seek's ops on an open Decoder, count none and join nothing: a
+    fold starts no prefetch, and the first seek drops the open's."""
+    if ops == "whole_reads":
+        with traced():
+            for _ in range(2):
+                dec = Decoder(track.data, device="cpu")
+                while dec.read(32768):
+                    pass
+        decodes = 2 * math.ceil(2 * track.frames / 128)
+        got = spans.totals()
+        assert got["spans"]["gomp3.decoder.launch"]["n"] == decodes
+        assert got["counts"]["gomp3.decoder.prefetched"] == decodes - 2
+        assert got["spans"]["gomp3.decoder.prefetch_wait"]["n"] == decodes
+        return
+    dec = Decoder(track.data, device="cpu")
+    times = np.random.default_rng(5).uniform(0, dec.duration(), 12)
+    with traced():
+        for t in times:
+            dec.seek_to_time(float(t))
+            dec.read(32768)
+    got = spans.totals()
+    assert got["spans"]["gomp3.decoder.launch"]["n"] == len(times)
+    assert got["counts"]["gomp3.decoder.seek_folds"] == len(times)
+    assert "gomp3.decoder.prefetched" not in got["counts"]
+    assert "gomp3.decoder.prefetch_wait" not in got["spans"]
 
 
 def _tail_escape_frame(n_pairs: int = 40) -> bytes:
@@ -277,6 +326,20 @@ def test_corpus_counters_are_the_results(traced, kind, monkeypatch):
         "gomp3.corpus.granules": res.granules,
         "gomp3.corpus.mono_granules": res.granules if kind == "lsf" else 0,
         "gomp3.corpus.wire_bytes": res.wire_bytes}
+
+
+def test_record_adds_a_span_timed_elsewhere(traced):
+    """record(): off, nothing; on, one span of the seconds given, all its
+    own time, and no part of the span open on this thread."""
+    spans.record("gomp3.test.native", 0.25)
+    assert spans.totals() == {"spans": {}, "counts": {}}
+    with traced():
+        with spans.span("gomp3.test.outer") as outer:
+            spans.record("gomp3.test.native", 0.25)
+            spans.record("gomp3.test.native", 0.5)
+    got = spans.totals()["spans"]
+    assert got["gomp3.test.native"] == {"n": 2, "s": 0.75, "self_s": 0.75}
+    assert got["gomp3.test.outer"]["self_s"] == got["gomp3.test.outer"]["s"] == outer.seconds
 
 
 def test_two_threads_do_not_nest_into_each_other(traced):
