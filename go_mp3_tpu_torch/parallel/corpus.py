@@ -184,10 +184,12 @@ class _Timer:
         return out
 
 
-def _count_returned(granules: int, mono_granules: int, wire_bytes: int) -> None:
+def _count_returned(granules: int, mono_granules: int, wire_bytes: int,
+                    slots: int) -> None:
     """The counters of the attempt whose result a decode_corpus_fast call
     returns (go_mp3_tpu_torch.spans; nothing unless a profiler runs)."""
     spans.count("gomp3.corpus.granules", granules)
+    spans.count("gomp3.corpus.slots", slots)
     spans.count("gomp3.corpus.mono_granules", mono_granules)
     spans.count("gomp3.corpus.wire_bytes", wire_bytes)
 
@@ -300,6 +302,14 @@ def decode_corpus_fast(
     once the card has finished (a DeviceCorpus, whose .stats has the
     run's phase split). fetch=False holds the whole corpus's PCM on the card, twice over for a
     moment at the end (per-chunk rows, then their stack).
+
+    Lanes may mix MPEG versions and sample rates (MPEG-1 at 32, 44.1 and
+    48 kHz, MPEG-2 LSF at 16, 22.05 and 24 kHz), and so end in different
+    chunks: each granule carries its own band tables. Every chunk ships
+    chunk_t rows of every lane, so a lane that has ended still ships its
+    rows (valid 0, its state kept) until the longest lane ends; the
+    counter gomp3.corpus.slots (go_mp3_tpu_torch.spans) counts those
+    slots, valid or not, beside gomp3.corpus.granules, the valid ones.
 
     mesh (parallel/mesh.make_mesh): split the streams over the mesh's
     devices; len(stream_bytes) must divide by mesh.size (ValueError
@@ -432,7 +442,7 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
     kept = [[] for _ in blocks]  # fetch=False: PCM rows per mesh entry
     valid_rows = []
     states = [init_state(hi - lo, dev) for dev, lo, hi in blocks]
-    total = wire_bytes = 0
+    total = wire_bytes = slots = 0
     pending = None  # (pcm host buffer, valids, events marking its D2H done)
 
     def emit(pcm_host, valids, done) -> None:
@@ -459,6 +469,7 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
             if not valids.any():
                 break
             total += int(valids.sum())
+            slots += n_streams * chunk_t
 
             wire_bytes += sum(a.numel() * a.element_size() for a in buf["in"])
             buf["copied"], done = [], []
@@ -497,7 +508,7 @@ def _decode(streams, chunk_t, mesh: Mesh, sharded: bool, fetch: bool, int8: bool
         _synchronize(mesh.devices)
     with timer.span("emit"):
         pcm = [b"".join(p) for p in parts]
-    _count_returned(total, 0, wire_bytes)
+    _count_returned(total, 0, wire_bytes, slots)
     res = CorpusResult(
         pcm=pcm,
         granules=total,
@@ -655,7 +666,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     parser = _SegmentParser([streams[i] for i in order], k, t, groups, n_threads)
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
     valid_rows = []  # fetch=False: internal-order valids per chunk
-    widths_log, wire_bytes, total, mono_total, capture_s = [], 0, 0, 0, 0.0
+    widths_log, wire_bytes, total, mono_total, slots, capture_s = [], 0, 0, 0, 0, 0.0
     replays0 = SegmentGraph.replays
     pending = None  # (host set, valids [k, S] internal, chunks, D2H events)
 
@@ -760,6 +771,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
                 widths_log += [widths] * n_seg
                 valids = parser.valids.copy()
                 total += int(valids.sum())
+                slots += k * n_streams * t  # a short last segment's padding chunks too
 
             hs["copied"], done = [], []
             for sh in shards:
@@ -783,7 +795,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
         _synchronize(mesh.devices)
     with timer.span("emit"):
         pcm = [b"".join(p) for p in parts]
-    _count_returned(total, mono_total, wire_bytes)
+    _count_returned(total, mono_total, wire_bytes, slots)
     res = CorpusResult(
         pcm=pcm,
         granules=total,

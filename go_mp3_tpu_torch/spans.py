@@ -47,7 +47,10 @@ Counters:
    of the run whose result a call returns: gomp3.corpus.granules, the
    valid granules; gomp3.corpus.mono_granules, those shipped on the
    half-width mono wire; gomp3.corpus.wire_bytes, the bytes shipped to
-   the devices (CorpusResult.wire_bytes);
+   the devices (CorpusResult.wire_bytes); gomp3.corpus.slots, the
+   lane-granule slots shipped to the chain, valid or not (chunks x lanes
+   x chunk_t: a lane that has ended, or ends inside a chunk, still ships
+   its rows);
  - gomp3.decoder.warmup_frames: frames decoded and dropped before a
    seek's target. A native stream decodes on one path: each decode
    parses into the stream's rows and runs the DSP once on them, up to

@@ -161,6 +161,7 @@ def test_corpus_on_the_mono_wire_within_iso_limits(tracks, linear, traced):
         _assert_compliant(got, want)
     assert all(len(w) == 1 for w in res.stats.chunk_widths)  # one (mono) group
     assert spans.totals()["counts"] == {"gomp3.corpus.granules": granules,
+                                        "gomp3.corpus.slots": valids.size * CHUNK_T,
                                         "gomp3.corpus.mono_granules": granules,
                                         "gomp3.corpus.wire_bytes": res.stats.wire_bytes}
 

@@ -5,7 +5,7 @@ torch.profiler every span is an event of the trace, its totals add up
 (own time plus nested time is its time, one thread at a time), the
 corpus's host phases are the spans' own readings, the counters count the
 chunks, decodes, warm-up frames and reruns, the corpus's counters are the
-returned result's granules, mono-wire granules and wire bytes, and the PCM
+returned result's granules, slots, mono-wire granules and wire bytes, and the PCM
 is the same with tracing on and off."""
 
 import json
@@ -122,6 +122,7 @@ def test_corpus_counts_match_its_chunks(lanes, traced, fetch):
                    "gomp3.corpus.wait": chunks + 1 + (chunks if fetch else 0) + 1}
     mono = sum(len(index_stream(d)[0]) for d in lanes[1:])  # one granule an LSF frame
     assert spans.totals()["counts"] == {"gomp3.corpus.granules": stats.granules,
+                                        "gomp3.corpus.slots": chunks * len(lanes) * CHUNK_T,
                                         "gomp3.corpus.mono_granules": mono,
                                         "gomp3.corpus.wire_bytes": stats.wire_bytes}
 
@@ -287,8 +288,10 @@ def test_reruns_are_counted(traced, case):
     else:  # one stereo group: a wire width a chunk
         assert all(len(w) == 1 for w in got.chunk_widths)
     # one rerun; the other counters only of the run whose result came back
+    chunks = 1 if case == "int16_overflow" else len(got.chunk_widths)  # 6 granules of 16
     assert spans.totals()["counts"] == {"gomp3.corpus.reruns": 1,
                                         "gomp3.corpus.granules": got.granules,
+                                        "gomp3.corpus.slots": chunks * len(streams) * chunk_t,
                                         "gomp3.corpus.mono_granules": 0,
                                         "gomp3.corpus.wire_bytes": got.wire_bytes}
     assert spans.totals()["spans"]["gomp3.corpus.call"]["n"] == 1
@@ -324,6 +327,7 @@ def test_corpus_counters_are_the_results(traced, kind, monkeypatch):
     assert res.granules == off.stats.granules > 0 and res.wire_bytes == off.stats.wire_bytes
     assert spans.totals()["counts"] == {
         "gomp3.corpus.granules": res.granules,
+        "gomp3.corpus.slots": len(res.chunk_widths) * len(streams) * CHUNK_T,
         "gomp3.corpus.mono_granules": res.granules if kind == "lsf" else 0,
         "gomp3.corpus.wire_bytes": res.wire_bytes}
 
