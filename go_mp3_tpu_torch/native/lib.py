@@ -200,6 +200,13 @@ def _load():
                                      ctypes.c_int] + [ctypes.c_void_p] * 4
     lib.gmp_worker_join.restype = ctypes.c_int
     lib.gmp_worker_join.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.gmp_worker_start_many.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+    lib.gmp_worker_join_many.restype = ctypes.c_int
+    lib.gmp_worker_join_many.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                                         ctypes.POINTER(ctypes.c_int32),
+                                         ctypes.POINTER(ctypes.c_int32)]
     lib.gmp_worker_destroy.argtypes = [ctypes.c_void_p]
     lib.gmp_pos.restype = ctypes.c_int64
     lib.gmp_pos.argtypes = [ctypes.c_void_p]
@@ -526,20 +533,19 @@ class BatchParser:
             _i32p(valids[lo:hi]),
             ctypes.byref(err_stream),
         )
-        if n == -1:
-            err = self._lib.gmp_error(
-                self.parsers[lo + err_stream.value]._p
-            ).decode()
-            raise ValueError(
-                "mp3: native parse failed "
-                f"(stream {lo + err_stream.value}): {err}"
-            )
-        if n == -2:
-            raise OverflowError(
-                "mp3: tail spectra clipped int8; use parse_packed_into "
-                f"(stream {lo + err_stream.value})"
-            )
+        if n < 0:
+            raise self.fault(n, lo + err_stream.value)
         return n
+
+    def fault(self, code: int, stream: int) -> Exception:
+        """The error of a many-stream parse that stopped with `code` at
+        `stream`: -1 a hard parse error (ValueError), -2 an int8 tail
+        overflow (OverflowError)."""
+        if code == -1:
+            err = self._lib.gmp_error(self.parsers[stream]._p).decode()
+            return ValueError(f"mp3: native parse failed (stream {stream}): {err}")
+        return OverflowError(
+            f"mp3: tail spectra clipped int8; use parse_packed_into (stream {stream})")
 
     def close(self) -> None:
         for p in self.parsers:
@@ -586,14 +592,16 @@ class StreamingNativeParser(NativeParser):
 class ParseWorker:
     """A native thread that runs one parse at a time off the caller's
     thread (prefetch.cpp): start() a NativeParser's parse into rows, as
-    parse_into or parse_packed_into would run it, then join() its result.
-    No Python runs on the thread, so it never takes the interpreter lock;
-    the thread and the join spin up to 2 ms before they sleep. The object
-    keeps the parser and the rows of the parse in flight alive until its
-    join, and the parser waits for it before it frees itself; deleted, the
-    worker waits for that parse and ends its thread. Fork copies no
-    thread: in a forked child the worker is foreign(), and it and the
-    parse it had in flight are left as they are."""
+    parse_into or parse_packed_into would run it, then join() its result;
+    or start_many() up to k chunks of a BatchParser's streams, then
+    join_many(). No Python runs on the thread, so it never takes the
+    interpreter lock; the thread and the join spin up to 2 ms before they
+    sleep. The object keeps the parsers and the rows of the parse in
+    flight alive until its join, and a parser waits for it before it
+    frees itself; deleted, the worker waits for that parse and ends its
+    thread. Fork copies no thread: in a forked child the worker is
+    foreign(), and it and the parse it had in flight are left as they
+    are."""
 
     def __init__(self):
         self._lib = _load()
@@ -602,12 +610,24 @@ class ParseWorker:
         self._forks = _forks
         self._w = self._lib.gmp_worker_create()
         self._ns = ctypes.c_int64()
-        self._job = None  # (parser, rows) of the parse in flight
+        self._job = None  # (parsers, what else it needs) of the parse in flight
 
     def foreign(self) -> bool:
         """True in a process forked from the one that made the worker: its
         thread did not follow."""
         return self._forks != _forks
+
+    def _fly(self, parsers, keep) -> None:
+        self._job = (parsers, keep)
+        for p in parsers:
+            p._flight = (self._w, self._forks)
+
+    def _land(self):
+        """The parse in flight's job, its parsers free again."""
+        (parsers, keep), self._job = self._job, None
+        for p in parsers:
+            p._flight = None
+        return parsers, keep
 
     def start(self, into, parser: NativeParser, *rows: np.ndarray) -> None:
         """Start into(parser, *rows) on the thread; `into` is
@@ -618,8 +638,7 @@ class ParseWorker:
             packed, cap = 0, _full_rows(*rows)
         else:
             raise ValueError(f"ParseWorker: no native form of {into!r}")
-        self._job = (parser, rows)
-        parser._flight = (self._w, self._forks)
+        self._fly([parser], rows)
         ptrs = [a.ctypes.data for a in rows] + [None] * (4 - len(rows))
         self._lib.gmp_worker_start(self._w, parser._p, cap, packed, *ptrs)
 
@@ -627,18 +646,51 @@ class ParseWorker:
         """(granules, seconds the parse took) of the parse started last: its
         return value, and its error raised here as it would have raised."""
         n = self._lib.gmp_worker_join(self._w, ctypes.byref(self._ns))
-        (parser, _), self._job = self._job, None
-        parser._flight = None
+        (parser,), _ = self._land()
         if n < 0:
             err = self._lib.gmp_error(parser._p).decode()
             raise ValueError(f"mp3: native parse failed: {err}")
         return n, self._ns.value / 1e9
 
+    def start_many(self, batch: BatchParser, tail8: np.ndarray, head16: np.ndarray,
+                   side8: np.ndarray, valids: np.ndarray) -> None:
+        """Start the parse of up to k chunks of every stream of `batch` on
+        the thread, into [k, S, cap, ..] rows and valids [k, S] (zeroed
+        here: a chunk past the stop keeps 0), chunk c as
+        batch.parse_chunk_into(tail8[c], head16[c], side8[c], valids[c])
+        would parse it, stopping at the first chunk with no granule or at
+        an error."""
+        _check_array("tail8", tail8, (None, None, None, SP8_TAIL_WIDTH), np.int8)
+        k, s, cap = tail8.shape[:3]
+        _check_array("head16", head16, (k, s, cap, HEAD_WIDTH), np.int16)
+        _check_array("side8", side8, (k, s, cap, SIDE8_WIDTH), np.uint8)
+        _check_array("valids", valids, (k, s), np.int32)
+        if s != len(batch.parsers):  # guards the C loop over the handles
+            raise ValueError(f"{s} rows for {len(batch.parsers)} parsers")
+        valids[:] = 0
+        self._fly(batch.parsers, (batch, tail8, head16, side8, valids))
+        self._lib.gmp_worker_start_many(
+            self._w, batch._handles, s, cap, k, tail8.ctypes.data, head16.ctypes.data,
+            side8.ctypes.data, valids.ctypes.data, tail8.strides[0], head16.strides[0],
+            side8.strides[0])
+
+    def join_many(self) -> tuple[int, float, Exception | None]:
+        """(chunks with a granule before the stop, seconds the parse took,
+        the error that stopped it or None) of the parse start_many began
+        last. The error is the one parse_chunk_into raises, handed back for
+        the caller to raise once it has used the chunks before it."""
+        status, stream = ctypes.c_int32(), ctypes.c_int32()
+        n = self._lib.gmp_worker_join_many(self._w, ctypes.byref(self._ns),
+                                           ctypes.byref(status), ctypes.byref(stream))
+        _, (batch, *_) = self._land()
+        err = batch.fault(status.value, stream.value) if status.value else None
+        return n, self._ns.value / 1e9, err
+
     def __del__(self):
         if getattr(self, "_w", None) and self._forks == _forks:
             self._lib.gmp_worker_destroy(self._w)  # waits for a parse in flight
             if self._job is not None:
-                self._job[0]._flight = None
+                self._land()
 
 
 class NativeDsp:

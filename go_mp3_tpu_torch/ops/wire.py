@@ -102,11 +102,8 @@ def _build(spectra, head, side, tail_lines, out, native, nch):
 def chunk_all_mono(side: np.ndarray, valids: np.ndarray) -> bool:
     """True iff every valid granule of the chunk has the mono bit set
     (sidecar meta word 1, bit 2)."""
-    for s in range(side.shape[0]):
-        v = int(valids[s])
-        if v and not (side[s, :v, 2] & 4).all():
-            return False
-    return True
+    live = np.arange(side.shape[1]) < np.asarray(valids)[:, None]
+    return bool((side[:, :, 2] & 4)[live].all())
 
 
 def tail_need_lines(spectra: np.ndarray) -> int:

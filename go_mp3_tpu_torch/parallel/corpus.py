@@ -8,10 +8,10 @@ pure-Python parser (parse_stream_granules), as GranuleBatches through the
 chain kernel's GranuleBatch route, one chunk at a time.
 
 In decode_corpus_fast the C++ parser fills [S, T] chunks of every stream
-into host arrays; the chunks reach the card
+into host arrays, the next chunk or segment on a worker thread while the
+caller packs and ships the current one; the chunks reach the card
 in pinned, double-buffered host buffers and are decoded with the
-per-stream state carried on the card, on one CUDA stream, while the host
-parses the next chunk or segment.
+per-stream state carried on the card, on one CUDA stream.
 
 fused=True (the default) is the production path:
  - lanes whose first frame is mono ship the half-width mono wire
@@ -23,7 +23,9 @@ fused=True (the default) is the production path:
    wire rows themselves and decodes them, chunk by chunk
    (parallel/segment.py run_segment_eager), or with drain=k as one
    captured CUDA graph per k-chunk segment (SegmentGraph);
- - n_threads > 1 parses disjoint lane blocks in worker threads.
+ - the next chunk's (segment's) parse runs ahead, into a second pool of
+   parser rows, on a native worker thread of the call's own, or with
+   n_threads > 1 on disjoint lane blocks in a pool of worker threads.
 fused=False is the three-array int8 interface; both paths drop to the int16
 interface when a stream's tail spectra overflow int8 (an input-range path,
 on the same device).
@@ -64,7 +66,7 @@ from ..consts import (
 )
 from ..device import resolve_device
 from ..models.pipeline import GranuleMeta, granules_from_frame, pack_granule_batch
-from ..native.lib import BatchParser, NativeParser
+from ..native.lib import BatchParser, NativeParser, ParseWorker
 from ..ops.granule import GranuleBatch, batch_to, init_state
 from ..ops.kernels import decode_chunk
 from ..ops.wire import (
@@ -333,6 +335,15 @@ def decode_corpus_fast(
     threads on disjoint lane blocks (fused path). mono_split: the mono
     wire for lanes whose first frame is mono (fused path).
 
+    The fused path parses the next chunk (segment, with drain) ahead on a
+    worker, whatever n_threads: a native thread of the call's own at
+    n_threads=1, the n_threads pool otherwise, into a second pool of
+    parser rows, while the caller packs, ships and emits the current one.
+    phase_seconds["parse"] (and the span gomp3.corpus.parse) is the
+    parse's own time on the worker; the caller's wait for it is the span
+    gomp3.corpus.parse_wait. A parse's error raises as the serial parse
+    raised it.
+
     device: None means CUDA (raises where CUDA is unavailable); "cpu" runs
     the plain PyTorch chain."""
     sharded = mesh is not None
@@ -545,53 +556,128 @@ def _mono_first_frame(data: bytes) -> bool:
         return False  # unclassifiable: the stereo wire carries anything
 
 
+class _Rows(NamedTuple):
+    """One pool of parser rows for a segment of k chunks: tail int8 [k, S,
+    T, ..], head int16, side uint8, valids int32 [k, S] (lane order
+    internal)."""
+
+    tail: np.ndarray
+    head: np.ndarray
+    side: np.ndarray
+    valids: np.ndarray
+
+
 class _SegmentParser:
-    """Parses up to k chunks of every lane into one host pool [k, S, T, ..]
-    (lane order internal), one C call per chunk or, with n_threads > 1,
-    one per contiguous lane block and worker (each worker owns its
-    parsers and its rows: GIL-free, byte-identical to serial,
-    go_mp3_tpu/parallel/corpus.py:432-463)."""
+    """Parses up to k chunks of every lane into a pool of rows, the next
+    segment ahead of the caller: start() begins its parse into the pool
+    the caller does not hold, join() waits for it and hands that pool
+    over; a pool is parsed into again only at the start() after the next
+    join(), so it stays the caller's until then. The parse runs on a
+    native worker thread of its own (native.ParseWorker, one C call a
+    chunk), or with n_threads > 1 on a thread pool, one C call per
+    contiguous lane block and chunk (each worker owns its parsers and its
+    rows: GIL-free, byte-identical to serial,
+    go_mp3_tpu/parallel/corpus.py:432-463). Its seconds go to the span
+    gomp3.corpus.parse at the join (spans.record) and to `seconds`."""
 
     def __init__(self, streams, k, chunk_t, groups, n_threads):
         n = len(streams)
         self.groups = groups
-        self.tail = np.empty((k, n, chunk_t, SP8_TAIL_WIDTH), np.int8)
-        self.head = np.empty((k, n, chunk_t, HEAD_WIDTH), np.int16)
-        self.side = np.empty((k, n, chunk_t, SIDE8_WIDTH), np.uint8)
-        self.valids = np.zeros((k, n), np.int32)
+        self.rows = [_Rows(np.empty((k, n, chunk_t, SP8_TAIL_WIDTH), np.int8),
+                           np.empty((k, n, chunk_t, HEAD_WIDTH), np.int16),
+                           np.empty((k, n, chunk_t, SIDE8_WIDTH), np.uint8),
+                           np.zeros((k, n), np.int32)) for _ in range(2)]
         self.batch = BatchParser(streams)
-        self.pool = None
+        self.seconds = 0.0
+        self._next = 0  # the pool the next start() fills
+        self._flight = None  # the parse in flight: the call that waits for its result
+        self._joins = 0
         if n_threads > 1:
             w = min(n_threads, n)
             bounds = [round(i * n / w) for i in range(w + 1)]
             self.blocks = list(zip(bounds, bounds[1:]))
-            self.pool = ThreadPoolExecutor(max_workers=w)
+            self.pool, self.worker = ThreadPoolExecutor(max_workers=w), None
+        else:
+            self.pool, self.worker = None, ParseWorker()
 
-    def parse(self) -> int:
-        """Fill the pool; -> the number of chunks with any granule (less
-        than k once every stream has ended; the valid counts of the
-        chunks past it are 0)."""
-        self.valids[:] = 0
-        for c in range(len(self.valids)):
-            arrays = (self.tail[c], self.head[c], self.side[c], self.valids[c])
-            if self.pool is None:
-                self.batch.parse_chunk_into(*arrays)
-            else:
-                for f in [self.pool.submit(self.batch.parse_chunk_into, *arrays,
-                                           lo=lo, hi=hi)
-                          for lo, hi in self.blocks]:
-                    f.result()
-            if not self.valids[c].any():
-                return c
+    def start(self) -> None:
+        """Begin parsing the next segment into the free pool."""
+        rows = self.rows[self._next]
+        if self.pool is None:
+            self.worker.start_many(self.batch, *rows)
+            self._flight = self.worker.join_many
+        else:
+            rows.valids[:] = 0
+            futures = [self.pool.submit(self._parse_block, rows, lo, hi)
+                       for lo, hi in self.blocks]
+            self._flight = lambda: self._gather(futures)
+
+    def _parse_block(self, rows: _Rows, lo: int, hi: int):
+        """Lanes [lo, hi) of every chunk of the segment, on a pool thread:
+        (each chunk's most granules, until the error that stopped it, the
+        error or None, start and end on the host clock)."""
+        t0, most, err = time.perf_counter(), [], None
+        for c in range(len(rows.valids)):
+            try:
+                most.append(self.batch.parse_chunk_into(
+                    rows.tail[c], rows.head[c], rows.side[c], rows.valids[c], lo=lo, hi=hi))
+            except (ValueError, OverflowError) as e:
+                err = e
+                break
+        return most, err, t0, time.perf_counter()
+
+    def _wait(self) -> tuple[int, float, Exception | None]:
+        """(chunks with any granule before the stop, the parse's seconds, the
+        error that stopped it or None) of the parse in flight."""
+        flight, self._flight = self._flight, None
+        return flight()
+
+    def _gather(self, futures) -> tuple[int, float, Exception | None]:
+        """_wait's result from the lane blocks' futures."""
+        blocks = [f.result() for f in futures]
+        seconds = max(b[3] for b in blocks) - min(b[2] for b in blocks)
+        for c in range(len(self.rows[0].valids)):
+            # the first block in order that stopped at chunk c raises, as
+            # the serial loop over the blocks' futures would
+            err = next((e for most, e, _, _ in blocks if e and len(most) == c), None)
+            if err or not any(most[c] for most, _, _, _ in blocks):
+                return c, seconds, err
+        return len(self.rows[0].valids), seconds, None
+
+    def join(self) -> tuple[int, _Rows]:
+        """Wait for the parse started last -> (chunks with any granule, less
+        than k once every stream has ended, the valid counts of the chunks
+        past it 0; the pool it filled). Its error raises here as the serial
+        parse raised it: after the chunks before it are checked, a
+        ValueError naming the stream, or OverflowError for an int8 tail;
+        _MonoSplitMismatch where a lane of a mono group holds a stereo
+        granule."""
+        rows = self.rows[self._next]
+        self._next ^= 1
+        with spans.span("gomp3.corpus.parse_wait"):
+            n_seg, seconds, err = self._wait()
+        self.seconds += seconds
+        spans.record("gomp3.corpus.parse", seconds)
+        if n_seg and self._joins:  # every segment but the first was parsed ahead
+            spans.count("gomp3.corpus.prefetched")
+        self._joins += 1
+        for c in range(n_seg):
             for g in self.groups:
-                if g.mono and not chunk_all_mono(self.side[c, g.lo:g.hi],
-                                                 self.valids[c, g.lo:g.hi]):
+                if g.mono and not chunk_all_mono(rows.side[c, g.lo:g.hi],
+                                                 rows.valids[c, g.lo:g.hi]):
                     raise _MonoSplitMismatch()
-        return len(self.valids)
+        if err is not None:
+            raise err
+        return n_seg, rows
 
     def close(self) -> None:
+        """Wait for a parse in flight, its result unread, then free the
+        threads and the parsers."""
+        if self._flight is not None:
+            self._wait()
         if self.pool is not None:
             self.pool.shutdown(wait=True)
+        self.worker = None
         self.batch.close()
 
 
@@ -641,11 +727,6 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
     sizes = tuple(g.hi - g.lo for g in groups)
     segmented = drain is not None and fetch
     k = drain if segmented else 1
-    shards = [
-        _Shard(dev, lo, hi, [j for j, g in enumerate(groups) if g.shard == i],
-               groups, order, k, t, fetch, segmented and dev.type == "cuda")
-        for i, (dev, lo, hi) in enumerate(blocks)
-    ]
 
     def host_set():
         """Pinned rows for one segment: the wire stacks (sized for the
@@ -661,8 +742,6 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
             "copied": [],
         }
 
-    # a set is refilled only after every entry's H2D copies of it completed
-    sets = (host_set(), host_set())
     parser = _SegmentParser([streams[i] for i in order], k, t, groups, n_threads)
     parts: list[list[bytes]] = [[] for _ in range(n_streams)]
     valid_rows = []  # fetch=False: internal-order valids per chunk
@@ -733,22 +812,31 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
                 done.append(e3)
 
     try:
+        parser.start()  # segment 0 parses while the entries and host sets are made
+        shards = [
+            _Shard(dev, lo, hi, [j for j, g in enumerate(groups) if g.shard == i],
+                   groups, order, k, t, fetch, segmented and dev.type == "cuda")
+            for i, (dev, lo, hi) in enumerate(blocks)
+        ]
+        # a set is refilled only after every entry's H2D copies of it completed
+        sets = (host_set(), host_set())
         for seg in itertools.count():
             hs = sets[seg % 2]
             with spans.span("gomp3.corpus.wait"):
                 for ev in hs["copied"]:
                     ev.synchronize()
-            with timer.span("parse"):
-                n_seg = parser.parse()
+            n_seg, rows = parser.join()
             if n_seg == 0:
                 break
+            if n_seg == k:  # the next segment parses while this one is packed and shipped
+                parser.start()
 
             # widths: per chunk (k = 1), or per segment with drain, the
             # bucket of the largest exact extent; then the wire rows
             with timer.span("pack"):
                 widths = tuple(
                     bucket_tail_lines(
-                        max(tail_need_lines(parser.tail[c, g.lo:g.hi])
+                        max(tail_need_lines(rows.tail[c, g.lo:g.hi])
                             for c in range(n_seg)),
                         tail_buckets)
                     if tail_buckets else TAIL_LINES_FULL
@@ -756,20 +844,20 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
                 )
                 wires = []
                 for g, w, flat, vbuf in zip(groups, widths, hs["wire"], hs["valid"]):
-                    rows = flat[: k * (g.hi - g.lo) * stream_nbytes(t, w, g.mono)]
-                    rows = rows.view(k, g.hi - g.lo, -1)
+                    wire = flat[: k * (g.hi - g.lo) * stream_nbytes(t, w, g.mono)]
+                    wire = wire.view(k, g.hi - g.lo, -1)
                     build = build_fused_chunk_mono if g.mono else build_fused_chunk
                     for c in range(n_seg):
-                        build(parser.tail[c, g.lo:g.hi], parser.head[c, g.lo:g.hi],
-                              parser.side[c, g.lo:g.hi], w, out=rows[c].numpy())
-                    rows[n_seg:] = 0  # padding chunks of a short last segment
-                    vbuf.numpy()[:] = parser.valids[:, g.lo:g.hi]
-                    wires.append(rows)
-                    wire_bytes += rows.numel()
+                        build(rows.tail[c, g.lo:g.hi], rows.head[c, g.lo:g.hi],
+                              rows.side[c, g.lo:g.hi], w, out=wire[c].numpy())
+                    wire[n_seg:] = 0  # padding chunks of a short last segment
+                    vbuf.numpy()[:] = rows.valids[:, g.lo:g.hi]
+                    wires.append(wire)
+                    wire_bytes += wire.numel()
                     if g.mono:
                         mono_total += int(vbuf.numpy().sum())
                 widths_log += [widths] * n_seg
-                valids = parser.valids.copy()
+                valids = rows.valids.copy()
                 total += int(valids.sum())
                 slots += k * n_streams * t  # a short last segment's padding chunks too
 
@@ -788,6 +876,7 @@ def _decode_fused(streams, chunk_t, fetch, drain, tail_buckets, n_threads,
             emit(*pending)
     finally:
         parser.close()
+    timer.host["parse"] = parser.seconds
 
     if valid_rows:
         pcm_dev = _device_result([sh.kept for sh in shards], sharded)

@@ -28,8 +28,13 @@ Spans (a root holds the rest of its group; what no inner span covers is
 the root's own time):
  - gomp3.corpus.call: a decode_corpus_fast call, reruns included;
    gomp3.corpus.parse, .pack, .emit: the host phases of phase_seconds,
-   timed by the same clock readings; gomp3.corpus.wait: the host blocked
-   on the card (an event's or a stream's synchronize);
+   timed by the same clock readings (the fused path parses each chunk or
+   segment ahead on a worker thread, outside every root: its parse adds
+   to the totals through record() when the caller joins it, with no trace
+   event); gomp3.corpus.parse_wait: the caller blocked joining that
+   worker, the part of the parse the overlap did not hide;
+   gomp3.corpus.wait: the host blocked on the card (an event's or a
+   stream's synchronize);
  - gomp3.decoder.open, .seek, .read: Decoder(...), Decoder.seek (and the
    seeks through seek_to_time, seek_to_sample and skip), Decoder.read;
    inside them, on the native path, gomp3.decoder.parse (a C++ parse
@@ -50,7 +55,9 @@ Counters:
    the devices (CorpusResult.wire_bytes); gomp3.corpus.slots, the
    lane-granule slots shipped to the chain, valid or not (chunks x lanes
    x chunk_t: a lane that has ended, or ends inside a chunk, still ships
-   its rows);
+   its rows); gomp3.corpus.prefetched: the fused path's segments whose
+   parse ran on a worker while the caller packed and shipped the one
+   before (every segment of a run but its first), reruns included;
  - gomp3.decoder.warmup_frames: frames decoded and dropped before a
    seek's target. A native stream decodes on one path: each decode
    parses into the stream's rows and runs the DSP once on them, up to

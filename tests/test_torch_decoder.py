@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import go_mp3_tpu  # noqa: E402
+import util_synth as U  # noqa: E402
 import go_mp3_tpu_torch  # noqa: E402
 from go_mp3_tpu import Decoder as JaxDecoder  # noqa: E402
 from go_mp3_tpu import GaplessDecoder as JaxGapless  # noqa: E402
@@ -935,29 +936,6 @@ def test_parse_worker_is_the_parse(seekable, into, where):
     assert results.count("error") == (where == "corrupt")
 
 
-def _in_child(child, timeout: float = 120) -> None:
-    """Run child() in a forked child, which must return True within
-    `timeout` seconds: a child that hangs is killed and fails the test."""
-    import os
-    import time
-
-    pid = os.fork()
-    if pid == 0:
-        ok = False
-        try:
-            ok = child()
-        finally:
-            os._exit(0 if ok else 1)
-    deadline = time.monotonic() + timeout
-    while (done := os.waitpid(pid, os.WNOHANG))[0] == 0 and time.monotonic() < deadline:
-        time.sleep(0.05)
-    if done[0] == 0:
-        os.kill(pid, 9)
-        os.waitpid(pid, 0)
-        pytest.fail("the forked child hung")
-    assert os.waitstatus_to_exitcode(done[1]) == 0
-
-
 def test_forked_child_prefetches_on_its_own_workers(seekable):
     """A child forked after the parent's streams filled the worker pool
     (fork copies no thread) reads the linear decode's bytes through a
@@ -972,7 +950,7 @@ def test_forked_child_prefetches_on_its_own_workers(seekable):
         d = Decoder(data, backend="exact")
         return b"".join(iter(lambda: d.read(32768), b"")) == linear
 
-    _in_child(child)
+    U.in_child(child)
 
 
 @pytest.mark.parametrize("readaheads", [0, 1])
@@ -1013,7 +991,7 @@ def test_decoder_opened_before_a_fork_reads_on_in_the_child(seekable, references
         return (rest == linear[read:] and seeked == linear[mid:mid + 70000]
                 and resumed == linear[read:])
 
-    _in_child(child)
+    U.in_child(child)
     assert b"".join(iter(lambda: d.read(32768), b"")) == linear[read:]
 
 

@@ -149,7 +149,7 @@ def traced():
 def test_corpus_on_the_mono_wire_within_iso_limits(tracks, linear, traced):
     """fetch=False: every lane within ISO full accuracy of the reference at
     its exact length; the counters: every granule on the mono wire, no
-    rerun."""
+    rerun, every chunk but the first parsed ahead."""
     with traced():
         pcm, valids = res = decode_corpus_fast([t.data for t in tracks], chunk_t=CHUNK_T,
                                                fetch=False, device="cpu")
@@ -160,7 +160,8 @@ def test_corpus_on_the_mono_wire_within_iso_limits(tracks, linear, traced):
                        for c, v in enumerate(valids[:, j]))
         _assert_compliant(got, want)
     assert all(len(w) == 1 for w in res.stats.chunk_widths)  # one (mono) group
-    assert spans.totals()["counts"] == {"gomp3.corpus.granules": granules,
+    assert spans.totals()["counts"] == {"gomp3.corpus.prefetched": len(valids) - 1,
+                                        "gomp3.corpus.granules": granules,
                                         "gomp3.corpus.slots": valids.size * CHUNK_T,
                                         "gomp3.corpus.mono_granules": granules,
                                         "gomp3.corpus.wire_bytes": res.stats.wire_bytes}

@@ -264,3 +264,42 @@ def escape_heavy_frame(n_pairs: int = 20, linbit_value: int = 4000,
     size = (144 * 128000) // 44100  # 417
     main = md.tobytes(pad_to=size - 4 - 17)
     return word.to_bytes(4, "big") + side + main
+
+
+def tail_escape_frame(n_pairs: int = 40) -> bytes:
+    """escape_heavy_frame with its region 1 and 2 tables set to its region
+    0 table (23), so the escapes run past line 64 into the int8 tail: the
+    fused path overflows and the corpus reruns on int16."""
+    frame = bytearray(escape_heavy_frame(n_pairs=n_pairs))
+    bits = list("".join(f"{b:08b}" for b in frame[4:21]))  # mono side info
+    for gr in range(2):
+        for region in (1, 2):
+            at = 18 + 59 * gr + 34 + 5 * region  # the granule's table_select
+            bits[at:at + 5] = f"{23:05b}"
+    frame[4:21] = bytes(int("".join(bits[i:i + 8]), 2) for i in range(0, 136, 8))
+    return bytes(frame)
+
+
+def in_child(child, timeout: float = 120) -> None:
+    """Run child() in a forked child, which must return True within
+    `timeout` seconds: a child that hangs is killed and fails the test."""
+    import os
+    import time
+
+    import pytest
+
+    pid = os.fork()
+    if pid == 0:
+        ok = False
+        try:
+            ok = child()
+        finally:
+            os._exit(0 if ok else 1)
+    deadline = time.monotonic() + timeout
+    while (done := os.waitpid(pid, os.WNOHANG))[0] == 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if done[0] == 0:
+        os.kill(pid, 9)
+        os.waitpid(pid, 0)
+        pytest.fail("the forked child hung")
+    assert os.waitstatus_to_exitcode(done[1]) == 0
